@@ -4,10 +4,12 @@
 Runs config-4 K=20 rollout inference at full width (hidden = embed = 64,
 4 heads, M = 5, N_max = 64, obs 8, pred 12) on the bench shapes of the JAX
 package (B = 25 windows, inputs from numpy with seed 0, random weights from
-seed 0), through the port's own entry point ``Forecaster.rollout_k``:
+seed 0), and the dense-crowd path of ``mmtraj_torch.benchmarks.rollout_bench``
+(N_max = 128 and 256, B = 12, both encoder families), through the port's own
+entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
 
 1. versions, and the card's name and power limit from nvidia-smi;
-2. build the three CUDA kernels from ``mmtraj_torch/csrc`` (one nvcc each,
+2. build the four CUDA kernels from ``mmtraj_torch/csrc`` (one nvcc each,
    all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with CUDA-event timings of both;
@@ -15,7 +17,17 @@ seed 0), through the port's own entry point ``Forecaster.rollout_k``:
    in the decoder) end to end, with its launch counts, against the plain
    route on the same random stream;
 5. route B (the attend kernel in every GAT call) the same way;
-6. one JSON line with every kernel's launches, error, times and bound.
+6. dense crowd: ``attend`` and the lane-packed ``attend(packed=True)``
+   against the plain chain at (B*K, N) = (500, 64), with an odd B and an
+   all-masked row; ``rollout_k`` at N_max = 128 (and 256), B = 12, K = 20
+   under ``attend_kernel="auto"`` for both encoder families, with exact
+   ``attend`` launch counts, against the plain route on the same stream;
+   ``attend`` on the inputs those runs gave it; the dense-crowd benchmark
+   (``mmtraj_torch.benchmarks.rollout_bench``) end to end, "auto" and
+   "xla" in turns, and a short ``op_sweep``;
+7. one JSON line with every kernel's launches (summed over the main-path
+   runs, each counted from 0; ``attend_packed``, which no ``rollout_k``
+   reaches, from its own path, the op sweep), error, times and bound.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -35,6 +47,8 @@ import time
 import numpy as np
 
 B, N, TO, TP, K = 25, 64, 8, 12, 20
+CB, CNS, CITERS = 12, (128, 256), 10  # dense crowd: windows, agent counts, benchmark iters
+SWEEP_NS, SWEEP_B, SWEEP_ITERS = (64, 128, 256), 512, 20  # the short op sweep
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM device-memory bytes/s (data sheet)
 KERNEL_TOL = 1e-4  # attend and GAT: atol = rtol
@@ -188,6 +202,7 @@ def main() -> int:
     s_src = (v @ fused_gat._block_diag(g["a_src"])).contiguous()
     s_dst = (v @ fused_gat._block_diag(g["a_dst"])).contiguous()
     att = with_self_loops(proximity_adjacency(xyk, mk, cfg.model.adjacency_radius), mk)
+    attend_args = (v, s_src, s_dst, att)
     out_k = fused_attend.attend(v, s_src, s_dst, att, H)
     out_p = fused_attend.attend_math(v, s_src, s_dst, att, H)
     torch.cuda.synchronize()
@@ -257,20 +272,28 @@ def main() -> int:
         f"plain {results['fused_decode']['plain_ms']:.4f} ms")
 
     # -- 4./5. the routes end to end, through Forecaster.rollout_k -----------------
-    counters = {"attend": fused_attend.attend, "fused_gat": fused_gat.fused_gat,
-                "fused_decode": fused_decoder.fused_decode}
-    launches = {}
+    counters = {"attend": fused_attend.attend, "attend_packed": fused_attend.attend_packed,
+                "fused_gat": fused_gat.fused_gat, "fused_decode": fused_decoder.fused_decode}
+    launches = dict.fromkeys(counters, 0)  # summed over the main-path runs
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
 
     def run_route(name, model_cfg, expect):
         model = Forecaster(model_cfg, TO, TP, device=dev, state=state)
-        for fn in counters.values():
-            fn.launches = 0
+        expect = {**dict.fromkeys(counters, 0), **expect}
+        reset_counts()
         roll = model.rollout_k(xy_obs, mask, stats, K,
                                generator=torch.Generator(device=dev).manual_seed(1))
         torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in counters.items()}
+        counts = read_counts()
         check(counts == expect, f"route {name}: launches {counts}, expected {expect}")
-        launches.update({k: c for k, c in counts.items() if c})
+        for k, c in counts.items():
+            launches[k] += c
         ref = plain.rollout_k(xy_obs, mask, stats, K,
                               generator=torch.Generator(device=dev).manual_seed(1))
         check(roll.shape == (K, B, N, TP, 2), f"route {name}: shape {tuple(roll.shape)}")
@@ -297,15 +320,142 @@ def main() -> int:
             f"(plain {ade_p.item():.4f}/{fde_p.item():.4f}); {rate:.1f} window-rollouts/s")
         return rate
 
-    rate_a = run_route("A", route_a, {"attend": 0, "fused_gat": TO, "fused_decode": 1})
-    rate_b = run_route("B", route_b, {"attend": TO + TP, "fused_gat": 0, "fused_decode": 0})
-    rate_p = run_route("plain", plain_cfg, {"attend": 0, "fused_gat": 0, "fused_decode": 0})
+    rate_a = run_route("A", route_a, {"fused_gat": TO, "fused_decode": 1})
+    rate_b = run_route("B", route_b, {"attend": TO + TP})
+    rate_p = run_route("plain", plain_cfg, {})
     log(f"window-rollouts/s (K={K}, B={B}, N={N}): route A {rate_a:.1f}, route B {rate_b:.1f}, "
         f"plain {rate_p:.1f}")
 
-    # -- 6. the kernels line ----------------------------------------------------
+    # -- 6. dense crowd -----------------------------------------------------------
+    # attend and the lane-packed kernel against the plain chain at the main
+    # path's (B*K, N, HD), then on an odd B with an all-masked row (graph 0,
+    # agent 5 loses every edge, its self-loop included).
+    def packed(*a):
+        return fused_attend.attend(*a, 8, True)
+
+    def check_attend(label, fn, args):
+        out_k, out_p = fn(*args, H), fused_attend.attend_math(*args, H)
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
+              f"{label}: max abs err {err}")
+        return out_k, err
+
+    masked = attend_args[3].clone()
+    masked[0, 5] = 0.0
+    odd_args = tuple(a[:B * K - 1] for a in attend_args[:3]) + (masked[:B * K - 1],)
+    for name, fn in (("attend", fused_attend.attend), ("attend_packed", packed)):
+        _, err = check_attend(f"{name} {tuple(v.shape)}", fn, attend_args)
+        out_k, err_odd = check_attend(f"{name} odd B={B * K - 1}", fn, odd_args)
+        check(not out_k[0, 5].any(), f"{name}: the all-masked row is not zero")
+        log(f"{name} {tuple(v.shape)} H={H}: max abs err {err:.3e}, odd B={B * K - 1} with an "
+            f"all-masked row {err_odd:.3e} (tol {KERNEL_TOL})")
+    results["attend_packed"] = dict(
+        max_abs_err=max(err, err_odd),
+        ms=time_ms(torch, lambda: packed(*attend_args, H)),
+        plain_ms=time_ms(torch, lambda: fused_attend.attend_math(*attend_args, H)),
+        cost=attend_cost(B * K, N, v.shape[-1], H))
+    log(f"attend_packed {tuple(v.shape)}: kernel {results['attend_packed']['ms']:.4f} ms, "
+        f"plain {results['attend_packed']['plain_ms']:.4f} ms")
+
+    # rollout_k at the dense-crowd shapes under "auto", inputs as the
+    # benchmark makes them; the first input of each shape that the attend
+    # wrapper hands its kernel is kept for the checks below.
+    from mmtraj_torch.benchmarks import rollout_bench
+
+    captured = {}
+    real_launch = fused_attend._launch
+
+    def recording_launch(name, v_, s_src_, s_dst_, att_, heads):
+        if name == "attend":
+            captured.setdefault(tuple(v_.shape), (v_, s_src_, s_dst_, att_))
+        return real_launch(name, v_, s_src_, s_dst_, att_, heads)
+
+    def dense_route(encoder, n_max, expect_attend):
+        xla_cfg = dataclasses.replace(cfg.model, encoder=encoder, attend_kernel="xla")
+        ref_model = Forecaster(xla_cfg, TO, TP, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        model = Forecaster(dataclasses.replace(xla_cfg, attend_kernel="auto"), TO, TP,
+                           device=dev, state=ref_model.state_dict())
+        xy_c, mask_c = rollout_bench.crowd_inputs(CB, n_max, TO, dev)
+        expect = {**dict.fromkeys(counters, 0), "attend": expect_attend}
+        fused_attend._launch = recording_launch
+        try:
+            reset_counts()
+            roll = model.rollout_k(xy_c, mask_c, stats, K,
+                                   generator=torch.Generator(device=dev).manual_seed(1))
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            fused_attend._launch = real_launch
+        check(counts == expect, f"dense {encoder} N={n_max}: launches {counts}, expected {expect}")
+        for k, c in counts.items():
+            launches[k] += c
+        ref = ref_model.rollout_k(xy_c, mask_c, stats, K,
+                                  generator=torch.Generator(device=dev).manual_seed(1))
+        check(roll.shape == (K, CB, n_max, TP, 2), f"dense {encoder}: shape {tuple(roll.shape)}")
+        check(bool(torch.isfinite(roll).all()), f"dense {encoder}: output is not finite")
+        d = torch.where(mask_c[None, :, :, None, None], (roll - ref).abs(), 0.0)
+        per = d.flatten(2).amax(2)
+        n_bad = int((per > ROLLOUT_TOL).sum())
+        check(n_bad <= MAX_DIVERGED * K * CB,
+              f"dense {encoder} N={n_max}: {n_bad} of {K * CB} rollouts past {ROLLOUT_TOL} m")
+        log(f"dense {encoder} N={n_max} B={CB} K={K} auto: launches {counts}; max abs err vs "
+            f"xla {per[per <= ROLLOUT_TOL].max().item():.3e} m, {n_bad} of {K * CB} rollouts "
+            f"past {ROLLOUT_TOL} m; valid agents {int(mask_c.sum())}")
+
+    HD = v.shape[-1]
+    dense_route("rnn", CNS[0], TO + TP)
+    dense_route("attn", CNS[0], cfg.model.attn_layers + TP)
+    for n_max in CNS[1:]:
+        dense_route("rnn", n_max, TO + TP)
+    shapes = {(CB * TO, CNS[0], HD)} | {(b, n, HD) for n in CNS for b in (CB, CB * K)}
+    check(set(captured) == shapes, f"dense-crowd attend shapes {sorted(captured)}")
+
+    # attend on the inputs the dense-crowd runs gave it.
+    for shape in sorted(captured):
+        args = captured[shape]
+        _, err = check_attend(f"attend {shape}", fused_attend.attend, args)
+        ms = time_ms(torch, lambda: fused_attend.attend(*args, H))
+        plain_ms = time_ms(torch, lambda: fused_attend.attend_math(*args, H))
+        bound_ms, bound_by = bound(*attend_cost(*shape, H))
+        log(f"attend {shape} H={H} (dense crowd): max abs err {err:.3e} (tol {KERNEL_TOL}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+            f"edges {int(args[3].sum())} of {args[3].numel()}")
+
+    # The benchmark end to end, "xla" and "auto" in turns, with exact counts:
+    # bench_rollout makes 4 * iters rollout_k calls (a warm-up run, 3 trials).
+    dense_rates = {}
+    for encoder, per_call in (("rnn", TO + TP), ("attn", cfg.model.attn_layers + TP)):
+        for kernel in ("xla", "auto", "auto", "xla"):
+            reset_counts()
+            rate = rollout_bench.bench_rollout(CNS[0], kernel, CB, K, CITERS, encoder=encoder,
+                                               device=dev)
+            want = per_call * 4 * CITERS if kernel == "auto" else 0
+            check(read_counts() == {**dict.fromkeys(counters, 0), "attend": want},
+                  f"bench_rollout {encoder} {kernel}: launches {read_counts()}, attend {want}")
+            check(rate > 0, f"bench_rollout {encoder} {kernel}: rate {rate}")
+            dense_rates.setdefault(f"{encoder}/{kernel}", []).append(rate)
+    log(f"dense-crowd window-rollouts/s (N={CNS[0]}, B={CB}, K={K}; in turns xla, auto, auto, "
+        f"xla): {json.dumps(dense_rates)}")
+
+    # A short op sweep: one B, each N; the packed kernel where 2N <= 128.
+    reset_counts()
+    sweep = rollout_bench.op_sweep(num_heads=H, dh=HD // H, iters=SWEEP_ITERS, device=dev,
+                                   ns=SWEEP_NS, bs=(SWEEP_B,))
+    sweep_counts = read_counts()
+    per_shape = 1 + 3 * SWEEP_ITERS  # op_sweep's warm-up call and 3 timed runs
+    want = {**dict.fromkeys(counters, 0), "attend": len(SWEEP_NS) * per_shape,
+            "attend_packed": sum(2 * n <= 128 for n in SWEEP_NS) * per_shape}
+    check(sweep_counts == want, f"op_sweep launches {sweep_counts}, expected {want}")
+    launches["attend_packed"] += sweep_counts["attend_packed"]  # its only caller
+    for row in sweep:
+        log("op_sweep " + json.dumps(row))
+
+    # -- 7. the kernels line ----------------------------------------------------
     sources = {
         "attend": ("mmtraj_torch/csrc/attend.cu", "mmtraj/ops/fused_attend.py:212"),
+        "attend_packed": ("mmtraj_torch/csrc/attend_packed.cu", "mmtraj/ops/fused_attend.py:229"),
         "fused_gat": ("mmtraj_torch/csrc/gat.cu", "mmtraj/ops/fused_gat.py:150"),
         "fused_decode": ("mmtraj_torch/csrc/decoder.cu", "mmtraj/ops/fused_decoder.py:208"),
     }
@@ -314,9 +464,11 @@ def main() -> int:
         r = results[name]
         bound_ms, bound_by = bound(*r["cost"])
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches.get(name, 0), "max_abs_err": r["max_abs_err"],
+                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    check(not missing, f"kernels never launched on their path: {missing}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,16 @@
-"""The trajectory forecaster, RNN family, inference path (counterpart of
-``mmtraj/models/forecaster.py``).
+"""The trajectory forecaster, inference path, both encoder families
+(counterpart of ``mmtraj/models/forecaster.py``).
 
 ``Forecaster`` is an ``nn.Module`` whose parameters keep the JAX keys and the
 JAX ``(in, out)`` orientation: ``state_dict()`` keys are the JAX tree's keys
 joined with ``.``.  The math is the JAX package's, step for step:
 
-* ``encode``: over the observed frames, embed the normalized offset, run the
-  GRU, rebuild the proximity adjacency from that frame's absolute positions
-  and add the GAT residual; then bridge the hidden state with tanh.
+* ``encode``, ``encoder="rnn"``: over the observed frames, embed the
+  normalized offset, run the GRU, rebuild the proximity adjacency from that
+  frame's absolute positions and add the GAT residual; then bridge the
+  hidden state with tanh.
+* ``encode``, ``encoder="attn"``: the spatio-temporal attention encoder of
+  ``models/attn_encoder.py``; its last-step features are bridged with tanh.
 * ``rollout_k``: tile the K samples into the batch (flat row ``kk*B + b``)
   and decode 12 sampled steps, either step by step (``decode_rollout``) or in
   one kernel launch (``use_fused_decoder``).
@@ -25,6 +28,7 @@ from mmtraj_torch.config import ModelConfig
 from mmtraj_torch.data.transforms import NormStats, denormalize, normalize, to_relative
 from mmtraj_torch.graph.adjacency import proximity_adjacency
 from mmtraj_torch.models import gmm
+from mmtraj_torch.models.attn_encoder import attn_encode
 from mmtraj_torch.models.cells import Carry, cell_apply, init_carry
 from mmtraj_torch.models.gat import gat_apply
 from mmtraj_torch.models.layers import Params, dense
@@ -121,6 +125,9 @@ class Forecaster(nn.Module):
         xy_obs, mask = self._tensor(xy_obs), self._tensor(mask, torch.bool)
         B, N = mask.shape
         dxy_n = normalize(to_relative(xy_obs), stats)
+        if cfg.encoder == "attn":
+            h = torch.tanh(dense(p["bridge_h"], attn_encode(p["enc"], cfg, xy_obs, dxy_n, mask)))
+            return Carry(h=h, c=torch.zeros_like(h))
         carry = init_carry((B, N), cfg.hidden_dim, self.device)
         for t in range(xy_obs.shape[2]):
             carry = _step(p["enc"], cfg, carry, dxy_n[:, :, t], xy_obs[:, :, t], mask)

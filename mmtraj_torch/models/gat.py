@@ -25,6 +25,15 @@ def gat_init(generator: torch.Generator, din: int, dout: int, num_heads: int) ->
     }
 
 
+def _attend_group(n: int, num_heads: int, hd: int) -> int:
+    """The JAX package's graphs per Pallas attend program (sized for the
+    TPU's VMEM).  Passed on to ``attend`` for the same call; the Hopper
+    kernels do not block by it."""
+    per_g = n * num_heads * n * 4 + n * n * 4 + num_heads * n * hd * 4
+    g = max(1, (8 * 2**20) // per_g)
+    return min(8, 1 << (g.bit_length() - 1))
+
+
 def use_attend_kernel(attend_kernel: str, use_pallas: bool, n: int, train: bool,
                       on_cuda: bool) -> bool:
     """The attend dispatch rule of the JAX package, with "on a TPU" read as
@@ -54,7 +63,9 @@ def gat_apply(p: Params, h: torch.Tensor, adj: torch.Tensor, mask: torch.Tensor,
         v = h @ p["wv"]
         s_src = v @ fused_gat._block_diag(p["a_src"])
         s_dst = v @ fused_gat._block_diag(p["a_dst"])
-        agg = fused_attend.attend(v, s_src, s_dst, attend, num_heads)
+        dh = p["wv"].shape[1] // num_heads
+        agg = fused_attend.attend(v, s_src, s_dst, attend, num_heads,
+                                  _attend_group(N, num_heads, dh))
         out = agg @ p["wo"] + p["bo"]
     else:
         fn = fused_gat.fused_gat if use_pallas else fused_gat.gat_math

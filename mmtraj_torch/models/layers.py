@@ -33,6 +33,33 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
+def mlp_init(generator: torch.Generator, dims) -> Params:
+    return {f"l{i}": dense_init(generator, dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dense layers ``l0, l1, ...`` with a ReLU between them, none after the last."""
+    n = len(p)
+    for i in range(n):
+        x = dense(p[f"l{i}"], x)
+        if i < n - 1:
+            x = torch.relu(x)
+    return x
+
+
+def layer_norm_init(dim: int, device=None) -> Params:
+    return {"scale": torch.ones(dim, device=device), "bias": torch.zeros(dim, device=device)}
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis: float32 statistics, biased variance."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Softmax over ``dim`` with mask==False entries absent; a row with no
     valid entry gives zeros (exp(0) * 0 over a 1e-20 floor), never NaN."""

@@ -1,18 +1,26 @@
 """The GAT attend chain: per-head masked LeakyReLU softmax and aggregate.
 
 Counterpart of ``mmtraj/ops/fused_attend.py``.  ``attend_math`` is the plain
-PyTorch version; ``attend`` is the wrapper of the Hopper kernel in
-``csrc/attend.cu``.
+PyTorch version; ``attend`` is the wrapper of the Hopper kernels in
+``csrc/attend.cu`` and, with ``packed=True``, ``csrc/attend_packed.cu``.
 
-Kernel note.  Replaces ``mmtraj/ops/fused_attend.py:_attend_pallas_fwd``
-(kernel ``_attend_kernel``).  On the H100 it is bound by bytes: at the main
-path's (B*K, N) = (500, 64) with 4 heads of 16 it reads v, the two score
-vectors and the 0/1 attend tile and writes the output, about 26 MB against
-about 0.3 GFLOP of f32 work.  The design therefore reads every input once:
-one block per graph stages v and the scores in shared memory, one warp per
-row keeps that row of the attend tile in registers for all heads, and the
-per-head weights never leave shared memory.  The TPU blocking (group of
-graphs, two graphs a lane tile, head-block-diagonal v) is not carried over.
+Kernel note.  ``csrc/attend.cu`` replaces
+``mmtraj/ops/fused_attend.py:_attend_pallas_fwd`` (kernel ``_attend_kernel``).
+On the H100 it is bound by bytes: at the main path's (B*K, N) = (500, 64)
+with 4 heads of 16 it reads v, the two score vectors and the 0/1 attend tile
+and writes the output, about 26 MB against about 0.3 GFLOP of f32 work.  The
+design therefore reads every input once: one block per graph stages v and
+the scores in shared memory, one warp per row keeps that row of the attend
+tile in registers for all heads, and the per-head weights never leave
+shared memory.  The TPU blocking (group of graphs, head-block-diagonal v) is
+not carried over.
+
+``csrc/attend_packed.cu`` replaces the same launch with ``packed=True``
+(kernel ``_attend_kernel_packed``), which packs two graphs into the TPU's
+128 lanes.  Its Hopper form computes the same function with the same bound:
+one block per pair of graphs, each warp on row i of both, lanes 0-15 on
+graph a and lanes 16-31 on graph b, with half-warp shuffles for each graph's
+row max and sum.
 """
 
 from __future__ import annotations
@@ -44,12 +52,7 @@ def attend_math(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
     return torch.cat(cols, dim=-1)
 
 
-def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
-           att: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """``attend_math`` through the Hopper kernel for CUDA tensors; a CPU
-    tensor takes ``attend_math`` itself.  ``att`` is the 0/1 attend tile."""
-    if not v.is_cuda:
-        return attend_math(v, s_src, s_dst, att, num_heads)
+def _check(v, s_src, s_dst, att, num_heads: int) -> None:
     B, N, HD = v.shape
     H = num_heads
     if N > MAX_N:
@@ -60,17 +63,59 @@ def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
     _build.check_cuda(s_src, "s_src", (B, N, H))
     _build.check_cuda(s_dst, "s_dst", (B, N, H))
     _build.check_cuda(att, "attend", (B, N, N))
+
+
+def _launch(name: str, v, s_src, s_dst, att, num_heads: int) -> torch.Tensor:
+    """Run ``mmtraj_<name>`` of ``csrc/<name>.cu`` on checked CUDA inputs."""
+    B, N, HD = v.shape
     out = torch.empty_like(v)
-    lib = _build.load("attend")
-    fn = lib.mmtraj_attend
+    lib = _build.load(name)
+    fn = getattr(lib, f"mmtraj_{name}")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(v.device):
         code = fn(v.data_ptr(), s_src.data_ptr(), s_dst.data_ptr(), att.data_ptr(),
-                  out.data_ptr(), B, N, H, HD, _build.stream_of(v))
-    _build.raise_on_error(lib, code, "attend")
+                  out.data_ptr(), B, N, num_heads, HD, _build.stream_of(v))
+    _build.raise_on_error(lib, code, name)
+    return out
+
+
+def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+           att: torch.Tensor, num_heads: int, group: int = 8,
+           packed: bool = False) -> torch.Tensor:
+    """``attend_math`` through a Hopper kernel for CUDA tensors; a CPU tensor
+    takes ``attend_math`` itself.  ``att`` is the 0/1 attend tile.
+
+    The signature and defaults are those of the JAX package's
+    ``attend_pallas``.  ``packed=True`` launches the lane-packed kernel
+    (``attend_packed``), never the unpacked one, and needs an even ``group``
+    on every device, as in JAX.  ``group`` (graphs per TPU program) is no
+    blocking knob on Hopper, where a block takes one graph or one pair: it is
+    accepted for the JAX signature only and changes no result."""
+    if packed and group % 2:
+        raise ValueError("packed attend kernel needs an even group size")
+    if packed:
+        return attend_packed(v, s_src, s_dst, att, num_heads)
+    if not v.is_cuda:
+        return attend_math(v, s_src, s_dst, att, num_heads)
+    _check(v, s_src, s_dst, att, num_heads)
+    out = _launch("attend", v, s_src, s_dst, att, num_heads)
     attend.launches += 1
     return out
 
 
+def attend_packed(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+                  att: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``attend_math`` through the lane-packed Hopper kernel (two graphs a
+    block; an odd B leaves the last block's second half idle) for CUDA
+    tensors; a CPU tensor takes ``attend_math`` itself."""
+    if not v.is_cuda:
+        return attend_math(v, s_src, s_dst, att, num_heads)
+    _check(v, s_src, s_dst, att, num_heads)
+    out = _launch("attend_packed", v, s_src, s_dst, att, num_heads)
+    attend_packed.launches += 1
+    return out
+
+
 attend.launches = 0
+attend_packed.launches = 0

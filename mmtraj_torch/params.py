@@ -39,9 +39,10 @@ def not_ported(what: str, roadmap_item: str) -> NotImplementedError:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port cannot run."""
-    if cfg.encoder != "rnn":
-        raise not_ported(f"encoder={cfg.encoder!r}", "the attention encoder")
+    """Raise ``NotImplementedError`` for a configuration the port cannot run,
+    ``ValueError`` for one that does not exist."""
+    if cfg.encoder not in ("rnn", "attn"):
+        raise ValueError(f"unknown encoder {cfg.encoder!r}; choose 'rnn' or 'attn'")
     if cfg.cell != "gru":
         raise not_ported(f"cell={cfg.cell!r}", "LSTM, imported GRU biases and bf16")
     if cfg.dtype != "float32":
@@ -84,10 +85,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> State:
     check_supported(cfg)
     E, H = cfg.embed_dim, cfg.hidden_dim
     g = generator
-    enc = {"embed": dense_init(g, 2, E), "cell": cell_init(g, cfg.cell, E, H)}
+    if cfg.encoder == "attn":
+        from mmtraj_torch.models.attn_encoder import attn_encoder_init
+
+        enc = attn_encoder_init(g, cfg)
+    else:
+        enc = {"embed": dense_init(g, 2, E), "cell": cell_init(g, cfg.cell, E, H)}
     dec = {"embed": dense_init(g, 2, E), "cell": cell_init(g, cfg.cell, E, H)}
     if cfg.social:
-        for coder in (enc, dec):
+        for coder in ((enc, dec) if cfg.encoder == "rnn" else (dec,)):
             for li in range(cfg.gat_layers):
                 coder["gat" if li == 0 else f"gat_{li}"] = gat_init(g, H, H, cfg.num_heads)
     tree = {"enc": enc, "dec": dec, "bridge_h": dense_init(g, H, H)}

@@ -60,6 +60,31 @@ def test_attend_kernel_matches_plain(cuda, n, heads, hd):
     assert not got[:, -1].any()
 
 
+@pytest.mark.parametrize("n", [8, 64, 100, 256])
+def test_packed_attend_kernel_matches_plain(cuda, n):
+    """Two graphs a block; B = 7 leaves the last block one graph."""
+    rng = np.random.default_rng(n + 1)
+    v, s_src, s_dst = _t(rng, 7, n, 64), _t(rng, 7, n, 4, scale=2), _t(rng, 7, n, 4, scale=2)
+    att = _attend_tile(rng, 7, n, cuda)
+    before = (fused_attend.attend.launches, fused_attend.attend_packed.launches)
+    got = fused_attend.attend(v, s_src, s_dst, att, 4, 8, True)
+    torch.cuda.synchronize()
+    assert (fused_attend.attend.launches, fused_attend.attend_packed.launches) == (
+        before[0], before[1] + 1)
+    torch.testing.assert_close(got, fused_attend.attend_math(v, s_src, s_dst, att, 4), **KERNEL)
+    assert not got[:, -1].any()
+
+
+def test_packed_attend_refuses_an_odd_group_on_the_card(cuda):
+    rng = np.random.default_rng(2)
+    v, s = _t(rng, 4, 64, 64), _t(rng, 4, 64, 4)
+    att = _attend_tile(rng, 4, 64, cuda)
+    before = (fused_attend.attend.launches, fused_attend.attend_packed.launches)
+    with pytest.raises(ValueError, match="even group"):
+        fused_attend.attend(v, s, s, att, 4, 3, True)
+    assert (fused_attend.attend.launches, fused_attend.attend_packed.launches) == before
+
+
 @pytest.mark.parametrize("n, d, heads, hd", [(8, 16, 2, 16), (64, 64, 4, 64), (128, 64, 4, 64),
                                              (256, 64, 4, 64), (64, 32, 4, 48)])
 def test_gat_kernel_matches_plain(cuda, n, d, heads, hd):
@@ -121,6 +146,28 @@ def test_routes_launch_their_kernels_and_match_the_plain_route(cuda, flags, coun
     torch.cuda.synchronize()
     launched = {k: w.launches - before[k] for k, w in wrappers.items()}
     assert launched == {k: counts.get(k, 0) for k in wrappers}
+    want = plain.rollout_k(xy, mask, stats, 4, generator=torch.Generator(device=cuda).manual_seed(1))
+    err = torch.where(mask[None, :, :, None, None], (got - want).abs(), 0.0).flatten(2).amax(2)
+    assert int((err > 1e-3).sum()) <= 0.01 * err.numel() + 1, err
+
+
+@pytest.mark.parametrize("encoder, count", [("rnn", 8 + 12), ("attn", 2 + 12)])
+def test_dense_crowd_auto_route_launches_attend(cuda, encoder, count):
+    """At N = 128 "auto" takes the attend kernel in every GAT call: 8
+    encoder steps (rnn) or 2 layers over all frames (attn), and 12 decoder
+    steps; never the packed kernel."""
+    plain = _model(cuda, encoder=encoder, attend_kernel="xla")
+    model = Forecaster(dataclasses.replace(plain.cfg, attend_kernel="auto"), 8, 12, device=cuda,
+                       state=plain.state_dict())
+    rng = np.random.default_rng(3)
+    xy = torch.cumsum(_t(rng, 3, 128, 8, 2, scale=0.4), dim=2) + _t(rng, 3, 128, 1, 2, scale=5)
+    mask = torch.from_numpy(rng.random((3, 128)) < 0.75).to(cuda)
+    stats = NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32))
+    before = (fused_attend.attend.launches, fused_attend.attend_packed.launches)
+    got = model.rollout_k(xy, mask, stats, 4, generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert (fused_attend.attend.launches, fused_attend.attend_packed.launches) == (
+        before[0] + count, before[1])
     want = plain.rollout_k(xy, mask, stats, 4, generator=torch.Generator(device=cuda).manual_seed(1))
     err = torch.where(mask[None, :, :, None, None], (got - want).abs(), 0.0).flatten(2).amax(2)
     assert int((err > 1e-3).sum()) <= 0.01 * err.numel() + 1, err

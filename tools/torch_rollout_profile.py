@@ -15,12 +15,18 @@ at full width, random weights from seed 0):
   lowers the busy share somewhat), and the mean host time of one
   ``cudaLaunchKernel``.
 
+Options pick another cell: ``--n-max``, ``--batch``, ``--encoder`` and
+``--routes`` (any of plain, A, B, auto; "auto" is the attend dispatch rule,
+which takes the attend kernel at N >= 128).  The dense-crowd cell:
+``--n-max 128 --batch 12 --routes plain,auto --encoder rnn|attn``.
+
 Prints one JSON line per route.  Needs a CUDA device; exits 1 without one.
-Usage: python tools/torch_rollout_profile.py
+Usage: python tools/torch_rollout_profile.py [options]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -33,10 +39,17 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-B, N, TO, TP, K = 25, 64, 8, 12, 20
+TO, TP, K = 8, 12, 20
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n-max", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=25)
+    ap.add_argument("--encoder", default="rnn", choices=("rnn", "attn"))
+    ap.add_argument("--routes", default="plain,A,B")
+    args = ap.parse_args(argv)
+    B, N = args.batch, args.n_max
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -49,12 +62,14 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    base = dataclasses.replace(config4().model, attend_kernel="xla")
-    routes = {
+    base = dataclasses.replace(config4().model, attend_kernel="xla", encoder=args.encoder)
+    all_routes = {
         "plain": base,
         "A": dataclasses.replace(base, use_pallas=True, use_fused_decoder=True),
         "B": dataclasses.replace(base, attend_kernel="pallas"),
+        "auto": dataclasses.replace(base, attend_kernel="auto"),
     }
+    routes = {name: all_routes[name] for name in args.routes.split(",")}
     state = Forecaster(base, TO, TP, device=dev,
                        generator=torch.Generator().manual_seed(0)).state_dict()
     rng = np.random.default_rng(0)
@@ -108,7 +123,8 @@ def main() -> int:
         busy_us = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({
-            "route": name, "device": device_kind,
+            "route": name, "encoder": args.encoder, "n_max": N, "batch": B,
+            "device": device_kind,
             "rollout_k_ms": statistics.median(walls),
             "host_enqueue_ms": statistics.median(enqueue),
             "encode_ms": statistics.median(enc_ms),
