@@ -12,7 +12,10 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
 2. build the four CUDA kernels from ``mmtraj_torch/csrc`` (one nvcc each,
    all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, with CUDA-event timings of both;
+   main path's shapes, with device times of both (CUDA-graph replays
+   timed by CUDA events), and ``fused_decode``
+   also at the dense crowd's (B*K, N) = (240, 128); each kernel's occupancy
+   (blocks an SM, registers, spill bytes, shared bytes a block);
 4. route A (whole-layer GAT kernel in the encoder, the fused rollout kernel
    in the decoder) end to end, with its launch counts, against the plain
    route on the same random stream;
@@ -27,7 +30,11 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    "xla" in turns, and a short ``op_sweep``;
 7. one JSON line with every kernel's launches (summed over the main-path
    runs, each counted from 0; ``attend_packed``, which no ``rollout_k``
-   reaches, from its own path, the op sweep), error, times and bound.
+   reaches, from its own path, the op sweep), error, times, occupancy and
+   two bounds: ``bound_ms`` prices every FLOP at the f32 rate outside the
+   tensor cores, ``tc_bound_ms`` the matrix products at three TF32 passes
+   on the tensor cores (the 3xTF32 split that ``attend`` and
+   ``fused_decode`` run).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -50,6 +57,7 @@ B, N, TO, TP, K = 25, 64, 8, 12, 20
 CB, CNS, CITERS = 12, (128, 256), 10  # dense crowd: windows, agent counts, benchmark iters
 SWEEP_NS, SWEEP_B, SWEEP_ITERS = (64, 128, 256), 512, 20  # the short op sweep
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (data sheet)
+TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM device-memory bytes/s (data sheet)
 KERNEL_TOL = 1e-4  # attend and GAT: atol = rtol
 ROLLOUT_TOL = 1e-3  # meters, on valid agents
@@ -73,17 +81,28 @@ def gpu_line() -> str:
 
 
 def time_ms(torch, fn, reps: int = 11, inner: int = 5) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
-    from CUDA events, after two warm-up calls."""
-    for _ in range(2):
-        fn()
+    """Device time of one call: the median over ``reps`` replays of a CUDA
+    graph of ``inner`` back-to-back calls, from CUDA events, after two warm-up
+    calls on a side stream.  The graph replays the kernels without the host's
+    cost of each call (for a wrapper 20-40 us, more than a small kernel
+    takes), which would otherwise leave the card idle inside the timing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(inner):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
@@ -97,36 +116,48 @@ def bound(flops: float, nbytes: float):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def tc_bound(flops: float, nbytes: float, products: float) -> float:
+    """``bound`` with the matrix products on the tensor cores in 3xTF32: the
+    product FLOPs at three TF32 passes over the TF32 peak plus the other FLOPs
+    over the f32 peak, or bytes over the memory rate if that is larger.  -> ms."""
+    t_ops = 3 * products / TF32_PEAK + (flops - products) / F32_PEAK
+    return max(nbytes / HBM_RATE, t_ops) * 1e3
+
+
 def attend_cost(b, n, hd, h):
     """Each input read once, the output written once; per graph 2 N^2 HD for
-    the aggregate, 7 H N^2 for the chain, N HD for the division."""
-    flops = b * (2 * n * n * hd + 7 * h * n * n + n * hd)
+    the aggregate (the product), 7 H N^2 for the chain, N HD for the division.
+    -> (flops, bytes, product flops)."""
+    products = b * 2 * n * n * hd
+    flops = products + b * (7 * h * n * n + n * hd)
     nbytes = 4 * (2 * b * n * hd + 2 * b * n * h + b * n * n)
-    return flops, nbytes
+    return flops, nbytes, products
 
 
 def gat_cost(b, n, d, hd, h, dout):
-    flops = b * (2 * n * d * hd + 4 * n * hd + 2 * n * n * hd + 7 * h * n * n + n * hd
-                 + 2 * n * hd * dout + n * dout)
+    products = b * (2 * n * d * hd + 2 * n * n * hd + 2 * n * hd * dout)
+    flops = products + b * (4 * n * hd + 7 * h * n * n + n * hd + n * dout)
     weights = d * hd + 2 * hd + hd * dout + dout
     nbytes = 4 * (b * n * d + b * n * n + b * n * dout + weights)
-    return flops, nbytes
+    return flops, nbytes, products
 
 
 def decode_cost(b, t, n, hd_, e, hd, h, m, n_weights):
     """Per agent and step: head, sampling, embed, GRU, value and score
-    products, adjacency, attend chain, output product and residual."""
-    per = (2 * hd_ * 6 * m + 6 * m + 40
+    products, adjacency, attend chain, output product and residual.  The
+    matrix products are the head, GRU, value, aggregate and output ones."""
+    products = (2 * hd_ * 6 * m + 2 * (e + hd_) * 3 * hd_ + 2 * hd_ * hd + 2 * n * hd
+                + 2 * hd * hd_)
+    per = (products + 6 * m + 40
            + 2 * 2 * e + 2 * e
-           + 2 * (e + hd_) * 3 * hd_ + 3 * hd_ + 12 * hd_
-           + 2 * hd_ * hd + 4 * hd
+           + 3 * hd_ + 12 * hd_
+           + 4 * hd
            + 8 * n
-           + 2 * n * hd + 7 * h * n + hd
-           + 2 * hd * hd_ + 3 * hd_)
-    flops = b * t * n * per
+           + 7 * h * n + hd
+           + 3 * hd_)
     nbytes = 4 * (b * n * hd_ + 2 * b * n + b * n + b * t * n * m + b * t * n * 2
                   + n_weights + b * t * n * 2)
-    return flops, nbytes
+    return b * t * n * per, nbytes, b * t * n * products
 
 
 def main() -> int:
@@ -210,6 +241,7 @@ def main() -> int:
     check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
           f"attend kernel vs plain: max abs err {err}")
     results["attend"] = dict(
+        occupancy=_build.occupancy("attend", N, H, v.shape[-1]),
         max_abs_err=err,
         ms=time_ms(torch, lambda: fused_attend.attend(v, s_src, s_dst, att, H)),
         plain_ms=time_ms(torch, lambda: fused_attend.attend_math(v, s_src, s_dst, att, H)),
@@ -231,6 +263,7 @@ def main() -> int:
     check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
           f"fused_gat kernel vs plain: max abs err {err}")
     results["fused_gat"] = dict(
+        occupancy=_build.occupancy("gat", N, h.shape[-1], H, g["wv"].shape[1]),
         max_abs_err=err,
         ms=time_ms(torch, lambda: fused_gat.fused_gat(*gat_args)),
         plain_ms=time_ms(torch, lambda: fused_gat.gat_math(*gat_args)),
@@ -240,36 +273,50 @@ def main() -> int:
 
     # fused_decode at B*K rollout graphs, on a stream drawn on the card.
     M = cfg.model.num_mixtures
-    gumbel, normal = plain._rollout_stream(B * K, N, torch.Generator(device=dev).manual_seed(2))
     hw, hb = fused_decoder.permute_head(p["head"]["w"], p["head"]["b"], M)
     dec_kw = dict(num_heads=H, num_mixtures=M, radius=cfg.model.adjacency_radius,
                   sigma_min=cfg.model.sigma_min, rho_max=cfg.model.rho_max,
                   stats_mean=stats.mean, stats_std=stats.std)
-    dec_args = (hk, xyk, mk, gumbel, normal, p["dec"], hw, hb)
-    out_k = fused_decoder.fused_decode(*dec_args, **dec_kw)
-    out_p = fused_decoder.reference_decode(*dec_args, **dec_kw)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out_k).all()), "fused_decode output is not finite")
-    valid = mk[:, None, :, None].expand_as(out_k)
-    diff = torch.where(valid, (out_k - out_p).abs(), 0.0)
-    per_graph = diff.flatten(1).amax(1)
-    diverged = int((per_graph > ROLLOUT_TOL).sum())
-    err = per_graph[per_graph <= ROLLOUT_TOL].max().item()
-    check(diverged <= MAX_DIVERGED * B * K,
-          f"fused_decode: {diverged} of {B * K} rollouts past {ROLLOUT_TOL} m")
     n_weights = sum(t.numel() for t in (*(x for d in p["dec"].values() if isinstance(d, dict)
                                             for x in d.values()), hw, hb))
-    results["fused_decode"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: fused_decoder.fused_decode(*dec_args, **dec_kw), inner=2),
-        plain_ms=time_ms(torch, lambda: fused_decoder.reference_decode(*dec_args, **dec_kw),
-                         reps=5, inner=1),
-        cost=decode_cost(B * K, TP, N, cfg.model.hidden_dim, cfg.model.embed_dim,
-                         g["wv"].shape[1], H, M, n_weights))
-    log(f"fused_decode (Bk={B * K}, T={TP}, N={N}): max abs err {err:.3e} m on valid agents "
-        f"of the rollouts within tol {ROLLOUT_TOL}; {diverged} of {B * K} rollouts past it; "
-        f"kernel {results['fused_decode']['ms']:.4f} ms, "
-        f"plain {results['fused_decode']['plain_ms']:.4f} ms")
+    HD = g["wv"].shape[1]
+
+    def check_decode(h_, xy_, m_):
+        bk, n = m_.shape
+        gumbel, normal = plain._rollout_stream(bk, n, torch.Generator(device=dev).manual_seed(2))
+        args = (h_, xy_, m_, gumbel, normal, p["dec"], hw, hb)
+        out_k = fused_decoder.fused_decode(*args, **dec_kw)
+        out_p = fused_decoder.reference_decode(*args, **dec_kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out_k).all()), f"fused_decode N={n}: output is not finite")
+        diff = torch.where(m_[:, None, :, None], (out_k - out_p).abs(), 0.0)
+        per_graph = diff.flatten(1).amax(1)
+        diverged = int((per_graph > ROLLOUT_TOL).sum())
+        err = per_graph[per_graph <= ROLLOUT_TOL].max().item()
+        check(diverged <= MAX_DIVERGED * bk,
+              f"fused_decode N={n}: {diverged} of {bk} rollouts past {ROLLOUT_TOL} m")
+        r = dict(max_abs_err=err,
+                 ms=time_ms(torch, lambda: fused_decoder.fused_decode(*args, **dec_kw), inner=2),
+                 plain_ms=time_ms(torch, lambda: fused_decoder.reference_decode(*args, **dec_kw),
+                                  reps=5, inner=1),
+                 cost=decode_cost(bk, TP, n, cfg.model.hidden_dim, cfg.model.embed_dim, HD, H, M,
+                                  n_weights),
+                 occupancy=_build.occupancy("decoder", n, cfg.model.hidden_dim,
+                                            cfg.model.embed_dim, H, HD, M))
+        log(f"fused_decode (Bk={bk}, T={TP}, N={n}): max abs err {err:.3e} m on valid agents "
+            f"of the rollouts within tol {ROLLOUT_TOL}; {diverged} of {bk} rollouts past it; "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{bound(*r['cost'][:2])[0]:.4f} ms, tc bound {tc_bound(*r['cost']):.4f} ms; "
+            f"{json.dumps(r['occupancy'])}")
+        return r
+
+    results["fused_decode"] = check_decode(hk, xyk, mk)
+    # and at the dense crowd's (B*K, N) = (240, 128), inputs as rollout_bench makes them.
+    from mmtraj_torch.benchmarks import rollout_bench
+
+    xy_c, mask_c = rollout_bench.crowd_inputs(CB, CNS[0], TO, dev)
+    carry_c = plain.encode(xy_c, mask_c, stats)
+    check_decode(tile(carry_c.h), tile(xy_c[:, :, -1]), tile(mask_c))
 
     # -- 4./5. the routes end to end, through Forecaster.rollout_k -----------------
     counters = {"attend": fused_attend.attend, "attend_packed": fused_attend.attend_packed,
@@ -351,6 +398,7 @@ def main() -> int:
         log(f"{name} {tuple(v.shape)} H={H}: max abs err {err:.3e}, odd B={B * K - 1} with an "
             f"all-masked row {err_odd:.3e} (tol {KERNEL_TOL})")
     results["attend_packed"] = dict(
+        occupancy=_build.occupancy("attend_packed", N, H, v.shape[-1]),
         max_abs_err=max(err, err_odd),
         ms=time_ms(torch, lambda: packed(*attend_args, H)),
         plain_ms=time_ms(torch, lambda: fused_attend.attend_math(*attend_args, H)),
@@ -361,8 +409,6 @@ def main() -> int:
     # rollout_k at the dense-crowd shapes under "auto", inputs as the
     # benchmark makes them; the first input of each shape that the attend
     # wrapper hands its kernel is kept for the checks below.
-    from mmtraj_torch.benchmarks import rollout_bench
-
     captured = {}
     real_launch = fused_attend._launch
 
@@ -404,7 +450,6 @@ def main() -> int:
             f"xla {per[per <= ROLLOUT_TOL].max().item():.3e} m, {n_bad} of {K * CB} rollouts "
             f"past {ROLLOUT_TOL} m; valid agents {int(mask_c.sum())}")
 
-    HD = v.shape[-1]
     dense_route("rnn", CNS[0], TO + TP)
     dense_route("attn", CNS[0], cfg.model.attn_layers + TP)
     for n_max in CNS[1:]:
@@ -418,10 +463,12 @@ def main() -> int:
         _, err = check_attend(f"attend {shape}", fused_attend.attend, args)
         ms = time_ms(torch, lambda: fused_attend.attend(*args, H))
         plain_ms = time_ms(torch, lambda: fused_attend.attend_math(*args, H))
-        bound_ms, bound_by = bound(*attend_cost(*shape, H))
+        cost = attend_cost(*shape, H)
+        bound_ms, bound_by = bound(*cost[:2])
         log(f"attend {shape} H={H} (dense crowd): max abs err {err:.3e} (tol {KERNEL_TOL}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
-            f"edges {int(args[3].sum())} of {args[3].numel()}")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"tc bound {tc_bound(*cost):.5f} ms; edges {int(args[3].sum())} of "
+            f"{args[3].numel()}; {json.dumps(_build.occupancy('attend', shape[1], H, shape[2]))}")
 
     # The benchmark end to end, "xla" and "auto" in turns, with exact counts:
     # bench_rollout makes 4 * iters rollout_k calls (a warm-up run, 3 trials).
@@ -462,11 +509,12 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         r = results[name]
-        bound_ms, bound_by = bound(*r["cost"])
+        bound_ms, bound_by = bound(*r["cost"][:2])
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by, "tc_bound_ms": tc_bound(*r["cost"]),
+                        "library_ms": None, **r["occupancy"]})
     missing = [k["name"] for k in kernels if not k["launches"]]
     check(not missing, f"kernels never launched on their path: {missing}")
     print(card)

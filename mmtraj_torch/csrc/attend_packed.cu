@@ -98,3 +98,9 @@ extern "C" int mmtraj_attend_packed(const float* v, const float* s_src, const fl
                                                                 N, H, HD);
   return cudaGetLastError();
 }
+
+// Occupancy of a launch at (N, H, HD): see kernel_occupancy.
+extern "C" int mmtraj_attend_packed_occupancy(int N, int H, int HD, int* info) {
+  return kernel_occupancy(attend_packed_kernel, kThreads,
+                          sizeof(float) * Layout(N, H, HD).floats(HD), info);
+}

@@ -87,6 +87,12 @@ gat_kernel(const float* __restrict__ h, const float* __restrict__ att,
   }
 }
 
+size_t shared_bytes(int N, int D, int H, int HD) {
+  const int W = D > HD ? D : HD;
+  return sizeof(float) * (size_t(N) * W + size_t(N) * HD + 2 * H * N +
+                          kWarps * attend_scratch_floats(N, H));
+}
+
 }  // namespace
 
 // h (B, N, D), att (B, N, N) 0/1, wv (D, HD), a_src/a_dst (H, HD/H),
@@ -98,12 +104,15 @@ extern "C" int mmtraj_gat(const float* h, const float* att, const float* wv,
   if (B <= 0) return cudaSuccess;
   if (N <= 0 || N > kMaxN || D <= 0 || H <= 0 || HD <= 0 || HD % H || Dout <= 0)
     return cudaErrorInvalidValue;
-  const int W = D > HD ? D : HD;
-  const size_t smem = sizeof(float) * (size_t(N) * W + size_t(N) * HD + 2 * H * N +
-                                       kWarps * attend_scratch_floats(N, H));
+  const size_t smem = shared_bytes(N, D, H, HD);
   cudaError_t err = allow_shared_memory(gat_kernel, smem);
   if (err != cudaSuccess) return err;
   gat_kernel<<<B, kThreads, smem, stream>>>(h, att, wv, a_src, a_dst, wo, bo, out, N, D, H,
                                             HD, Dout);
   return cudaGetLastError();
+}
+
+// Occupancy of a launch at (N, D, H, HD): see kernel_occupancy.
+extern "C" int mmtraj_gat_occupancy(int N, int D, int H, int HD, int* info) {
+  return kernel_occupancy(gat_kernel, kThreads, shared_bytes(N, D, H, HD), info);
 }

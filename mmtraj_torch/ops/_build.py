@@ -1,10 +1,11 @@
 """Build the CUDA kernels in ``mmtraj_torch/csrc`` at first use and load them.
 
-Each ``csrc/<name>.cu`` (with the shared ``attend_common.cuh``) compiles with
+Each ``csrc/<name>.cu`` (with the shared headers ``csrc/*.cuh``) compiles with
 ``nvcc`` for Hopper (``sm_90a``) into ``mmtraj_torch/build/lib<name>-<hash>.so``,
 a shared library with a plain C interface that ``ctypes`` loads.  The hash
-covers the sources and the flags, so an edited source builds anew and an
-unchanged one loads from the build directory.  Nothing here runs at import.
+covers the source, every header and the flags, so an edited or added header
+builds anew and an unchanged tree loads from the build directory.  Nothing
+here runs at import.
 """
 
 from __future__ import annotations
@@ -40,12 +41,13 @@ def nvcc() -> str:
 
 
 def _sources(name: str):
-    return [CSRC / f"{name}.cu", CSRC / "attend_common.cuh"]
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
 
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources(name):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -90,6 +92,19 @@ def load(name: str) -> ctypes.CDLL:
         lib.mmtraj_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def occupancy(name: str, *shape: int) -> Dict[str, int]:
+    """What ``mmtraj_<name>_occupancy`` of ``csrc/<name>.cu`` reports for a
+    launch at ``shape`` (the kernel's own size arguments): blocks an SM,
+    registers and local (spill) bytes a thread, dynamic shared bytes a block."""
+    lib = load(name)
+    fn = getattr(lib, f"mmtraj_{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    raise_on_error(lib, fn(*shape, ctypes.addressof(info)), f"{name} occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "spill_bytes", "shared_bytes"), info))
 
 
 def check_cuda(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:

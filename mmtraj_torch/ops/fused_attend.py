@@ -8,12 +8,15 @@ Kernel note.  ``csrc/attend.cu`` replaces
 ``mmtraj/ops/fused_attend.py:_attend_pallas_fwd`` (kernel ``_attend_kernel``).
 On the H100 it is bound by bytes: at the main path's (B*K, N) = (500, 64)
 with 4 heads of 16 it reads v, the two score vectors and the 0/1 attend tile
-and writes the output, about 26 MB against about 0.3 GFLOP of f32 work.  The
-design therefore reads every input once: one block per graph stages v and
-the scores in shared memory, one warp per row keeps that row of the attend
-tile in registers for all heads, and the per-head weights never leave
-shared memory.  The TPU blocking (group of graphs, head-block-diagonal v) is
-not carried over.
+and writes the output, about 26 MB against about 0.3 GFLOP of f32 work.  A
+block takes one graph's block of 16 rows (so B = 12 graphs of 128 agents are
+96 blocks), reads its attend rows once, as float4, into a bit mask, and each
+warp builds one head's softmax weights straight into tensor-core fragments
+and multiplies them with that head's columns of v on ``mma.sync`` in 3xTF32
+(float32-level products; the row max comes from the largest s_dst over the
+row's edges, so no pass over the logits).  v is read once per row block,
+from L2 after the first; the scores are staged by ``cp.async``.  The TPU
+blocking (group of graphs, head-block-diagonal v) is not carried over.
 
 ``csrc/attend_packed.cu`` replaces the same launch with ``packed=True``
 (kernel ``_attend_kernel_packed``), which packs two graphs into the TPU's

@@ -12,15 +12,19 @@ the same trajectories.
 
 Kernel note.  Replaces ``mmtraj/ops/fused_decoder.py:fused_decode`` (kernel
 ``_decoder_kernel``).  On the H100 it is bound by operations: at the main
-path's B*K = 500 rollout graphs of N = 64 agents it does about 31 GFLOP of
-f32 work over 12 steps (the GRU's two products are most of it) and moves
-only about 22 MB (h0, the random streams, the trajectory).  The design keeps
-the recurrent state on chip for all 12 steps: one block per rollout graph
-holds h, xy and every per-step intermediate in shared memory, builds each
-adjacency row in registers from the positions (no N x N tile is stored),
-and reads the weights (about 150 KB) through L2 and L1 from device memory.
-The products are plain per-thread dot products in f32, not tensor-core
-tiles; that is the first thing a faster version changes.
+path's B*K = 500 rollout graphs of N = 64 agents it does about 31 GFLOP over
+12 steps, nearly all of it in matrix products (the GRU's two are most of it),
+and moves only about 22 MB (h0, the random streams, the trajectory).  The
+design keeps the recurrent state on chip for all 12 steps: one block per
+rollout graph holds h, xy and every per-step intermediate in shared memory
+and prefetches the next step's random rows with ``cp.async``.  Every
+product (head, fused GRU, value, the per-head attend aggregate, output) runs
+on the tensor cores as ``mma.sync`` m16n8k8 tiles in 3xTF32 (float32-level
+products); a warp owns an 8-column output tile for up to four 16-row slabs,
+so each weight fragment it loads feeds every slab.  The adjacency of each
+slab is a bit mask built from the positions in registers (no N x N tile).
+The kernel takes N a multiple of 8 up to 128, and any widths: K and columns
+are padded with zeros in the fragments.
 """
 
 from __future__ import annotations

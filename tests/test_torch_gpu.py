@@ -14,6 +14,8 @@ graph.
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +25,9 @@ from mmtraj_torch.config import ModelConfig
 from mmtraj_torch.data.transforms import NormStats
 from mmtraj_torch.models.forecaster import Forecaster
 from mmtraj_torch.ops import fused_attend, fused_decoder, fused_gat
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import kernel_inputs  # noqa: E402  (the inputs tools/kernel_times.py times)
 
 pytestmark = pytest.mark.gpu
 
@@ -37,17 +42,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _t(rng, *shape, scale=1.0, device="cuda"):
-    return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+_t, _attend_tile = kernel_inputs.tensor, kernel_inputs.attend_tile
 
 
-def _attend_tile(rng, b, n, device):
-    att = (rng.random((b, n, n)) < 0.3).astype(np.float32)
-    att[:, -1] = 0.0  # padded rows: every logit masked, output zero
-    return torch.from_numpy(att).to(device)
-
-
-@pytest.mark.parametrize("n, heads, hd", [(8, 2, 16), (64, 4, 64), (100, 4, 64), (256, 8, 64)])
+@pytest.mark.parametrize("n, heads, hd", [(8, 2, 16), (64, 4, 64), (100, 4, 64), (256, 8, 64),
+                                           (40, 4, 48), (24, 1, 72)])
 def test_attend_kernel_matches_plain(cuda, n, heads, hd):
     rng = np.random.default_rng(n)
     v, s_src, s_dst = _t(rng, 6, n, hd), _t(rng, 6, n, heads, scale=2), _t(rng, 6, n, heads, scale=2)
@@ -57,6 +56,22 @@ def test_attend_kernel_matches_plain(cuda, n, heads, hd):
     torch.cuda.synchronize()
     assert fused_attend.attend.launches == before + 1
     torch.testing.assert_close(got, fused_attend.attend_math(v, s_src, s_dst, att, heads), **KERNEL)
+    assert not got[:, -1].any()
+
+
+@pytest.mark.parametrize("b", [1, 12])
+@pytest.mark.parametrize("n", [100, 128, 256])
+def test_attend_kernel_row_blocks(cuda, b, n):
+    """16-row blocks, the last one ragged at N = 100; graph 0 has an
+    all-masked row in a middle block, which must come out zero."""
+    rng = np.random.default_rng(b * n)
+    v, s_src, s_dst = _t(rng, b, n, 64), _t(rng, b, n, 4, scale=2), _t(rng, b, n, 4, scale=2)
+    att = _attend_tile(rng, b, n, cuda)
+    att[0, n // 2 + 3] = 0.0
+    got = fused_attend.attend(v, s_src, s_dst, att, 4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fused_attend.attend_math(v, s_src, s_dst, att, 4), **KERNEL)
+    assert not got[0, n // 2 + 3].any()
     assert not got[:, -1].any()
 
 
@@ -104,6 +119,19 @@ def _model(device, **flags):
     return Forecaster(cfg, 8, 12, device=device, generator=torch.Generator().manual_seed(0))
 
 
+def _check_decode(args, kw):
+    """fused_decode launches once, stays finite, and at most 1% of its rollout
+    graphs are further than 1e-3 m from the plain version's on valid agents."""
+    before = fused_decoder.fused_decode.launches
+    got = fused_decoder.fused_decode(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_decoder.fused_decode.launches == before + 1
+    assert torch.isfinite(got).all()
+    want = fused_decoder.reference_decode(*args, **kw)
+    worst, past = kernel_inputs.rollout_errors(got, want, args[2])
+    assert past <= 0.01 * args[0].shape[0], (worst, past)
+
+
 @pytest.mark.parametrize("n", [8, 64, 128])
 def test_decoder_kernel_matches_plain(cuda, n):
     model = _model(cuda)
@@ -117,14 +145,14 @@ def test_decoder_kernel_matches_plain(cuda, n):
     kw = dict(num_heads=4, num_mixtures=5, radius=2.0, sigma_min=1e-3, rho_max=0.99,
               stats_mean=np.array([0.01, -0.02], np.float32),
               stats_std=np.array([0.4, 0.5], np.float32))
-    args = (h0, xy0, mask, gumbel, normal, p["dec"], hw, hb)
-    before = fused_decoder.fused_decode.launches
-    got = fused_decoder.fused_decode(*args, **kw)
-    torch.cuda.synchronize()
-    assert fused_decoder.fused_decode.launches == before + 1
-    want = fused_decoder.reference_decode(*args, **kw)
-    err = torch.where(mask[:, None, :, None], (got - want).abs(), 0.0).flatten(1).amax(1)
-    assert int((err > 1e-3).sum()) <= 0.01 * bk, err
+    _check_decode((h0, xy0, mask, gumbel, normal, p["dec"], hw, hb), kw)
+
+
+@pytest.mark.parametrize("n, hidden, embed, hd, m", kernel_inputs.DECODER_CASES)
+def test_decoder_kernel_at_tile_edges(cuda, n, hidden, embed, hd, m):
+    """Config-4 widths at N = 64 and 128, and widths off the 8-column tiles,
+    with glorot-normal weights as the model draws them."""
+    _check_decode(*kernel_inputs.decoder_case(fused_decoder, n, hidden, embed, hd, m, device=cuda))
 
 
 @pytest.mark.parametrize("flags, counts", [
