@@ -13,9 +13,13 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with device times of both (CUDA-graph replays
-   timed by CUDA events), and ``fused_decode``
-   also at the dense crowd's (B*K, N) = (240, 128); each kernel's occupancy
-   (blocks an SM, registers, spill bytes, shared bytes a block);
+   timed by CUDA events), ``fused_gat`` also at the decoder step's
+   (B*K, N) = (500, 64) and on the dense crowd's encoder state (12, 128)
+   (a thread block cluster of 4 and of 8 blocks a graph), and
+   ``fused_decode`` also at the dense crowd's (B*K, N) = (240, 128); each
+   kernel's occupancy (blocks an SM, registers, spill bytes, shared bytes a
+   block, and for ``fused_gat`` the cluster's blocks and how many clusters
+   the card holds at once);
 4. route A (whole-layer GAT kernel in the encoder, the fused rollout kernel
    in the decoder) end to end, with its launch counts, against the plain
    route on the same random stream;
@@ -33,8 +37,7 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    reaches, from its own path, the op sweep), error, times, occupancy and
    two bounds: ``bound_ms`` prices every FLOP at the f32 rate outside the
    tensor cores, ``tc_bound_ms`` the matrix products at three TF32 passes
-   on the tensor cores (the 3xTF32 split that ``attend`` and
-   ``fused_decode`` run).
+   on the tensor cores (the 3xTF32 split that every kernel runs).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -220,7 +223,7 @@ def main() -> int:
     results = {}
 
     def with_self_loops(adj, m):
-        eye = torch.eye(N, dtype=torch.bool, device=dev)
+        eye = torch.eye(adj.shape[-1], dtype=torch.bool, device=dev)
         return (adj | (eye & m[:, None, :] & m[:, :, None])).float().contiguous()
 
     def tile(a):
@@ -250,26 +253,36 @@ def main() -> int:
         f"kernel {results['attend']['ms']:.4f} ms, plain {results['attend']['plain_ms']:.4f} ms; "
         f"edges {int(att.sum())} of {att.numel()}")
 
-    # fused_gat at (B, N, D): the encoder GAT on the last observed frame.
+    def check_gat(label, args):
+        b, n, d = args[0].shape
+        hd, dout = args[2].shape[1], args[5].shape[1]
+        out_k, out_p = fused_gat.fused_gat(*args), fused_gat.gat_math(*args)
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
+              f"fused_gat kernel vs plain ({label}): max abs err {err}")
+        r = dict(occupancy=_build.occupancy("gat", n, d, H, hd, dout), max_abs_err=err,
+                 ms=time_ms(torch, lambda: fused_gat.fused_gat(*args)),
+                 plain_ms=time_ms(torch, lambda: fused_gat.gat_math(*args)),
+                 cost=gat_cost(b, n, d, hd, H, dout))
+        bound_ms, bound_by = bound(*r["cost"][:2])
+        log(f"fused_gat {(b, n, d)} H={H} ({label}): max abs err {err:.3e} (tol {KERNEL_TOL}); "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}), tc bound {tc_bound(*r['cost']):.6f} ms; edges {int(args[1].sum())} "
+            f"of {args[1].numel()}; {json.dumps(r['occupancy'])}")
+        return r
+
+    # fused_gat at (B, N, D): the encoder GAT on the last observed frame, and
+    # the decoder's GAT on the attend inputs' (B*K, N) graphs.
     g = p["enc"]["gat"]
-    h = carry.h.contiguous()
     att = with_self_loops(proximity_adjacency(xy_obs[:, :, -1], mask,
                                               cfg.model.adjacency_radius), mask)
-    gat_args = (h, att, g["wv"], g["a_src"], g["a_dst"], g["wo"], g["bo"], H)
-    out_k = fused_gat.fused_gat(*gat_args)
-    out_p = fused_gat.gat_math(*gat_args)
-    torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
-    check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
-          f"fused_gat kernel vs plain: max abs err {err}")
-    results["fused_gat"] = dict(
-        occupancy=_build.occupancy("gat", N, h.shape[-1], H, g["wv"].shape[1]),
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: fused_gat.fused_gat(*gat_args)),
-        plain_ms=time_ms(torch, lambda: fused_gat.gat_math(*gat_args)),
-        cost=gat_cost(B, N, h.shape[-1], g["wv"].shape[1], H, g["wo"].shape[1]))
-    log(f"fused_gat {tuple(h.shape)} H={H}: max abs err {err:.3e} (tol {KERNEL_TOL}); "
-        f"kernel {results['fused_gat']['ms']:.4f} ms, plain {results['fused_gat']['plain_ms']:.4f} ms")
+    gat_weights = (g["wv"], g["a_src"], g["a_dst"], g["wo"], g["bo"], H)
+    results["fused_gat"] = check_gat("encoder, last observed frame",
+                                     (carry.h.contiguous(), att, *gat_weights))
+    gd = p["dec"]["gat"]
+    check_gat("decoder step", (hk, attend_args[3], gd["wv"], gd["a_src"], gd["a_dst"], gd["wo"],
+                               gd["bo"], H))
 
     # fused_decode at B*K rollout graphs, on a stream drawn on the card.
     M = cfg.model.num_mixtures
@@ -317,6 +330,9 @@ def main() -> int:
     xy_c, mask_c = rollout_bench.crowd_inputs(CB, CNS[0], TO, dev)
     carry_c = plain.encode(xy_c, mask_c, stats)
     check_decode(tile(carry_c.h), tile(xy_c[:, :, -1]), tile(mask_c))
+    att_c = with_self_loops(proximity_adjacency(xy_c[:, :, -1], mask_c,
+                                                cfg.model.adjacency_radius), mask_c)
+    check_gat("dense crowd's encoder state", (carry_c.h.contiguous(), att_c, *gat_weights))
 
     # -- 4./5. the routes end to end, through Forecaster.rollout_k -----------------
     counters = {"attend": fused_attend.attend, "attend_packed": fused_attend.attend_packed,

@@ -1,15 +1,15 @@
-// The masked multi-head attend chain of the kernels of mmtraj_torch: the
-// row-per-warp form (attend_row, in attend_packed.cu and gat.cu), the
-// tensor-core form (attend_slab, in attend.cu and decoder.cu), and what every
-// kernel uses around its launch.
+// The masked multi-head attend chain of every kernel of mmtraj_torch
+// (attend.cu, attend_packed.cu, gat.cu and decoder.cu): attend_slab, on the
+// tensor cores for one 16-row slab and one head, its edge masks
+// (edge_word), and what every kernel uses around its launch.
 //
 // For one output row i and each head h:
 //   logits_j = LeakyReLU_0.2(s_src[h, i] + s_dst[h, j]), set to -1e9 where a_ij = 0
 //   e_j      = exp(logits_j - max_j logits_j) * a_ij
 //   out[h*dh + d] = sum_j e_j v[j, h*dh + d] / max(sum_j e_j, 1e-20)
-// which is mmtraj/ops/fused_attend.py:attend_math.  The mask value is -1e9 and
-// not -inf: a padded row has every logit masked, and -inf - (-inf) would give
-// NaN where the reference gives exp(0) * 0 = 0.
+// which is mmtraj/ops/fused_attend.py:attend_math.  A padded row has no
+// edge, so all its weights are 0 and its output is 0 / 1e-20 = 0, where the
+// reference's -1e9 mask gives exp(0) * 0 = 0.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,13 +19,12 @@
 
 namespace mmtraj {
 
-constexpr float kNegInf = -1e9f;
-constexpr int kMaxN = 256;             // widest graph: a lane holds kMaxJ entries of a row
-constexpr int kMaxJ = kMaxN / 32;
+constexpr int kMaxN = 256;             // the widest graph
+constexpr int kSlabRows = 16;          // rows of a slab: one m16 tile
+constexpr int kMaskWords = kMaxN / 64; // edge-mask words a lane: 8 bits for each 16 columns
 
-// Max and sum over each group of kWidth consecutive lanes (32: the whole
-// warp; 16: each half-warp on its own; 4: the lanes of one row of an mma
-// fragment).  All 32 lanes call them together.
+// Max and sum over each group of kWidth consecutive lanes (4: the lanes of
+// one row of an mma fragment).  All 32 lanes call them together.
 template <int kWidth>
 __device__ __forceinline__ float lanes_max(float x) {
   for (int o = kWidth / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -50,6 +49,41 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Word w of this lane's edge mask of a 16-row slab, from the slab's attend
+// rows (arow0: its first row, `rows` of them, N columns, 0/1): bit
+// 8 cc + 4 r + q is a_ij of row g + 8 r of the slab and column
+// 64 w + 16 cc + 4 t + q, which is bit 4 r + q of chunk 4 w + cc in
+// attend_slab's order.  Rows at or past `rows` and columns at or past N
+// give 0.  Each row is read as float4 where N % 4 == 0 and arow0 is
+// 16-byte aligned.
+__device__ __forceinline__ uint32_t edge_word(const float* __restrict__ arow0, int N, int rows,
+                                              int w) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool wide = N % 4 == 0 && (reinterpret_cast<uintptr_t>(arow0) & 15) == 0;
+  uint32_t word = 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (g + 8 * r >= rows) continue;
+    const float* arow = arow0 + size_t(g + 8 * r) * N;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int j = 64 * w + 16 * cc + 4 * t;
+      if (j >= N) continue;
+      float a[4];
+      if (wide) {
+        const float4 a4 = __ldg(reinterpret_cast<const float4*>(arow + j));
+        a[0] = a4.x, a[1] = a4.y, a[2] = a4.z, a[3] = a4.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[k] = j + k < N ? __ldg(arow + j + k) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) word |= uint32_t(a[k] > 0.f) << (8 * cc + 4 * r + k);
+    }
+  }
+  return word;
 }
 
 // The attend chain of one 16-row slab and one head on the tensor cores, by
@@ -145,73 +179,6 @@ __device__ __forceinline__ void attend_slab(int chunks, int dh, const float* sdh
       }
     }
   }
-}
-
-// Floats of per-row-group scratch attend_row needs: for each head, the N
-// weights e_j and the denominator.  The row length N + 1 also puts
-// consecutive heads on different shared-memory banks.
-__host__ __device__ inline int attend_scratch_floats(int N, int H) { return H * (N + 1); }
-
-// One output row i of the attend chain for all H heads, computed by a group
-// of kWidth consecutive lanes (a whole warp, or a half-warp when two graphs
-// share a warp).  a[t] holds a_ij for j = lane + kWidth t (0 beyond N).  In
-// shared memory: s_src and s_dst head-major (H, N); v row-major (N, HD); p
-// this group's scratch.  out: the HD floats of row i, in shared or global
-// memory.  Every lane of the warp must call it with the same N, H and HD.
-template <int kWidth>
-__device__ inline void attend_row_lanes(int i, int N, int H, int HD,
-                                        const float (&a)[kMaxN / kWidth],
-                                        const float* s_src, const float* s_dst,
-                                        const float* v, float* p, float* out) {
-  constexpr int kJ = kMaxN / kWidth;
-  const int lane = threadIdx.x & (kWidth - 1);
-  const int dh = HD / H;
-  for (int h = 0; h < H; ++h) {
-    const float si = s_src[h * N + i];
-    const float* sd = s_dst + h * N;
-    float l[kJ];
-    float mx = -INFINITY;  // every row has N >= 1 entries, each >= -1e9
-#pragma unroll
-    for (int t = 0; t < kJ; ++t) {
-      const int j = lane + kWidth * t;
-      l[t] = kNegInf;
-      if (j < N) {
-        float x = si + sd[j];
-        x = x > 0.f ? x : 0.2f * x;
-        l[t] = a[t] > 0.f ? x : kNegInf;
-        mx = fmaxf(mx, l[t]);
-      }
-    }
-    mx = lanes_max<kWidth>(mx);
-    float* ph = p + h * (N + 1);
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kJ; ++t) {
-      const int j = lane + kWidth * t;
-      if (j < N) {
-        const float e = expf(l[t] - mx) * a[t];
-        ph[j] = e;
-        sum += e;
-      }
-    }
-    sum = lanes_sum<kWidth>(sum);
-    if (lane == 0) ph[N] = fmaxf(sum, 1e-20f);
-  }
-  __syncwarp();
-  for (int c = lane; c < HD; c += kWidth) {
-    const float* ph = p + (c / dh) * (N + 1);
-    float acc = 0.f;
-    for (int j = 0; j < N; ++j) acc = fmaf(ph[j], v[j * HD + c], acc);
-    out[c] = acc / ph[N];
-  }
-  __syncwarp();  // the next row reuses p
-}
-
-// One output row, by a whole warp (kMaxJ entries of the attend row a lane).
-__device__ inline void attend_row(int i, int N, int H, int HD, const float (&a)[kMaxJ],
-                                  const float* s_src, const float* s_dst, const float* v,
-                                  float* p, float* out) {
-  attend_row_lanes<32>(i, N, H, HD, a, s_src, s_dst, v, p, out);
 }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in per kernel.

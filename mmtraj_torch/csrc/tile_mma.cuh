@@ -1,5 +1,5 @@
 // Tensor-core tiles in float32-level precision, and asynchronous copies into
-// shared memory, for the Hopper kernels of mmtraj_torch (attend.cu, decoder.cu).
+// shared memory, for the Hopper kernels of mmtraj_torch.
 //
 // Products run on mma.sync.aligned.m16n8k8 in TF32 with the 3xTF32 split:
 // each operand x becomes big = tf32(x) (round to nearest, 10 stored mantissa
@@ -106,16 +106,36 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Start copying n floats from src to shared dst with every thread of the
-// block: 16 bytes a copy where both sides are 16-byte aligned and n is a
-// multiple of 4, else 4.  The caller commits and waits.
-__device__ inline void stage(float* dst, const float* src, int n) {
+// Start copying n floats from src to shared dst with threads tid of
+// `threads` (by default every thread of the block): 16 bytes a copy where
+// both sides are 16-byte aligned and n is a multiple of 4, else 4.  The
+// caller commits and waits.
+__device__ inline void stage(float* dst, const float* src, int n, int tid, int threads) {
   const bool wide =
       ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0 && n % 4 == 0;
   if (wide) {
-    for (int k = 4 * threadIdx.x; k < n; k += 4 * blockDim.x) cp_async16(dst + k, src + k);
+    for (int k = 4 * tid; k < n; k += 4 * threads) cp_async16(dst + k, src + k);
   } else {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) cp_async4(dst + k, src + k);
+    for (int k = tid; k < n; k += threads) cp_async4(dst + k, src + k);
+  }
+}
+
+__device__ inline void stage(float* dst, const float* src, int n) {
+  stage(dst, src, n, threadIdx.x, blockDim.x);
+}
+
+// The same for a (rows, cols) row-major matrix into shared rows of stride ld.
+__device__ inline void stage_rows(float* dst, int ld, const float* src, int rows, int cols) {
+  const bool wide = ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0 &&
+                    cols % 4 == 0 && ld % 4 == 0;
+  const int step = wide ? 4 : 1, per_row = cols / step;
+  for (int k = threadIdx.x; k < rows * per_row; k += blockDim.x) {
+    const int r = k / per_row, c = (k - r * per_row) * step;
+    if (wide) {
+      cp_async16(dst + r * ld + c, src + r * cols + c);
+    } else {
+      cp_async4(dst + r * ld + c, src + r * cols + c);
+    }
   }
 }
 

@@ -97,14 +97,21 @@ def load(name: str) -> ctypes.CDLL:
 def occupancy(name: str, *shape: int) -> Dict[str, int]:
     """What ``mmtraj_<name>_occupancy`` of ``csrc/<name>.cu`` reports for a
     launch at ``shape`` (the kernel's own size arguments): blocks an SM,
-    registers and local (spill) bytes a thread, dynamic shared bytes a block."""
+    registers and local (spill) bytes a thread, dynamic shared bytes a block;
+    for a kernel launched in thread block clusters also the cluster's blocks
+    and how many such clusters the card holds at once."""
     lib = load(name)
     fn = getattr(lib, f"mmtraj_{name}_occupancy")
     fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    info = (ctypes.c_int * 4)()
+    names = ("blocks_per_sm", "registers", "spill_bytes", "shared_bytes", "cluster",
+             "active_clusters")
+    info = (ctypes.c_int * len(names))()
     raise_on_error(lib, fn(*shape, ctypes.addressof(info)), f"{name} occupancy")
-    return dict(zip(("blocks_per_sm", "registers", "spill_bytes", "shared_bytes"), info))
+    out = dict(zip(names, info))
+    if not out["cluster"]:  # launched without a cluster: the first four only
+        del out["cluster"], out["active_clusters"]
+    return out
 
 
 def check_cuda(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:

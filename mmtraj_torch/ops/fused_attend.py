@@ -20,10 +20,11 @@ blocking (group of graphs, head-block-diagonal v) is not carried over.
 
 ``csrc/attend_packed.cu`` replaces the same launch with ``packed=True``
 (kernel ``_attend_kernel_packed``), which packs two graphs into the TPU's
-128 lanes.  Its Hopper form computes the same function with the same bound:
-one block per pair of graphs, each warp on row i of both, lanes 0-15 on
-graph a and lanes 16-31 on graph b, with half-warp shuffles for each graph's
-row max and sum.
+128 lanes.  Its Hopper form computes the same function with the same bound
+from the same kernel body (``csrc/attend_block.cuh``): a block takes a pair
+of graphs' 16-row slabs, four warps a graph, each graph with its own edge
+bit masks and tensor-core chains; in the last block of an odd B the second
+graph loads and stores nothing.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 from mmtraj_torch.models.layers import NEG_INF
 from mmtraj_torch.ops import _build
 
-MAX_N = 256  # the widest graph the kernel takes (its per-lane row registers)
+MAX_N = 256  # the widest graph the kernels take (four edge-mask words a lane)
 
 
 def attend_math(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
@@ -109,9 +110,9 @@ def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
 
 def attend_packed(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
                   att: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """``attend_math`` through the lane-packed Hopper kernel (two graphs a
-    block; an odd B leaves the last block's second half idle) for CUDA
-    tensors; a CPU tensor takes ``attend_math`` itself."""
+    """``attend_math`` through the lane-packed Hopper kernel (a pair of
+    graphs a block; an odd B leaves the last block's second graph idle) for
+    CUDA tensors; a CPU tensor takes ``attend_math`` itself."""
     if not v.is_cuda:
         return attend_math(v, s_src, s_dst, att, num_heads)
     _check(v, s_src, s_dst, att, num_heads)

@@ -7,12 +7,18 @@ PyTorch version; ``fused_gat`` is the wrapper of the Hopper kernel in
 Kernel note.  Replaces ``mmtraj/ops/fused_gat.py:_fused_gat_fwd_impl``
 (kernel ``_gat_kernel``).  On the H100 it is bound by operations: at the main
 path's (B, N, D) = (25, 64, 64) it moves about 1.3 MB but does about 44 MFLOP
-of f32 work (the value and output products and the attend chain), and the
-grid is small.  The design keeps every intermediate on chip: one block per
-graph holds h, v, the scores and the aggregate in shared memory, reads the
-weights through the cache, and runs the attend chain of ``csrc/attend.cu``
-from the same device routine.  The JAX package's super-graph packing (128/N
-graphs folded into one for the TPU's lanes) is exact and is not carried over.
+of f32 work (the value and output products and the attend chain).  The
+design keeps every intermediate on chip and spreads each graph over a thread
+block cluster: a block takes a 16-row slab of one graph (two slabs where
+N > 128), so a graph is at most 8 blocks and (25, 64, 64) is 100 blocks.  A
+block computes its rows of v = h wv on the tensor cores (``mma.sync`` in
+3xTF32, float32-level), and their head scores, then copies the rest of the
+graph's v and scores from its peers' shared memory after a cluster barrier,
+runs the attend chain of ``csrc/attend.cu`` (``attend_slab``) for each head
+of its slab, and computes out = agg wo + bo on the tensor cores; wv and wo
+arrive in shared memory by ``cp.async``.  The JAX package's super-graph
+packing (128/N graphs folded into one for the TPU's lanes) is exact and is
+not carried over.
 """
 
 from __future__ import annotations

@@ -75,18 +75,22 @@ def test_attend_kernel_row_blocks(cuda, b, n):
     assert not got[:, -1].any()
 
 
+@pytest.mark.parametrize("b", [7, 1])
 @pytest.mark.parametrize("n", [8, 64, 100, 256])
-def test_packed_attend_kernel_matches_plain(cuda, n):
-    """Two graphs a block; B = 7 leaves the last block one graph."""
+def test_packed_attend_kernel_matches_plain(cuda, n, b):
+    """A pair of graphs a block; an odd B (7, and 1) leaves the last block
+    one graph.  Graph 0 has an all-masked row, which must come out zero."""
     rng = np.random.default_rng(n + 1)
-    v, s_src, s_dst = _t(rng, 7, n, 64), _t(rng, 7, n, 4, scale=2), _t(rng, 7, n, 4, scale=2)
-    att = _attend_tile(rng, 7, n, cuda)
+    v, s_src, s_dst = _t(rng, b, n, 64), _t(rng, b, n, 4, scale=2), _t(rng, b, n, 4, scale=2)
+    att = _attend_tile(rng, b, n, cuda)
+    att[0, n // 2] = 0.0
     before = (fused_attend.attend.launches, fused_attend.attend_packed.launches)
     got = fused_attend.attend(v, s_src, s_dst, att, 4, 8, True)
     torch.cuda.synchronize()
     assert (fused_attend.attend.launches, fused_attend.attend_packed.launches) == (
         before[0], before[1] + 1)
     torch.testing.assert_close(got, fused_attend.attend_math(v, s_src, s_dst, att, 4), **KERNEL)
+    assert not got[0, n // 2].any()
     assert not got[:, -1].any()
 
 
@@ -100,18 +104,37 @@ def test_packed_attend_refuses_an_odd_group_on_the_card(cuda):
     assert (fused_attend.attend.launches, fused_attend.attend_packed.launches) == before
 
 
-@pytest.mark.parametrize("n, d, heads, hd", [(8, 16, 2, 16), (64, 64, 4, 64), (128, 64, 4, 64),
-                                             (256, 64, 4, 64), (64, 32, 4, 48)])
-def test_gat_kernel_matches_plain(cuda, n, d, heads, hd):
+@pytest.mark.parametrize("n, d, heads, hd, b, padded", [
+    (8, 16, 2, 16, 5, 0), (64, 64, 4, 64, 5, 0), (128, 64, 4, 64, 5, 0), (256, 64, 4, 64, 5, 0),
+    (64, 32, 4, 48, 5, 0),
+    (16, 64, 4, 64, 5, 0),   # one slab: a cluster of one block
+    (100, 64, 4, 64, 5, 0),  # a ragged last slab, a cluster of 7
+    (200, 64, 4, 64, 5, 0),  # two slabs a block, a cluster of 7
+    (64, 64, 4, 64, 1, 0),   # B = 1
+    (100, 32, 4, 48, 3, 9),  # an all-masked row and 9 padded agents
+])
+def test_gat_kernel_matches_plain(cuda, n, d, heads, hd, b, padded):
+    """A graph's 16-row slabs are the blocks of one thread block cluster.
+    Rows without edges (every graph's last row, and with ``padded`` an
+    all-masked row of graph 0 and the last agents, with no edge in or out)
+    come out as exactly bo."""
     rng = np.random.default_rng(n + d)
-    args = (_t(rng, 5, n, d), _attend_tile(rng, 5, n, cuda), _t(rng, d, hd, scale=0.3),
+    args = (_t(rng, b, n, d), _attend_tile(rng, b, n, cuda), _t(rng, d, hd, scale=0.3),
             _t(rng, heads, hd // heads, scale=0.3), _t(rng, heads, hd // heads, scale=0.3),
             _t(rng, hd, 40, scale=0.3), _t(rng, 40, scale=0.1))
+    bare = [(slice(None), n - 1)]
+    if padded:
+        args[1][0, n // 2] = 0.0
+        args[1][:, n - padded:] = 0.0
+        args[1][:, :, n - padded:] = 0.0
+        bare += [(0, n // 2), (slice(None), slice(n - padded, None))]
     before = fused_gat.fused_gat.launches
     got = fused_gat.fused_gat(*args, heads)
     torch.cuda.synchronize()
     assert fused_gat.fused_gat.launches == before + 1
     torch.testing.assert_close(got, fused_gat.gat_math(*args, heads), **KERNEL)
+    for rows in bare:
+        assert torch.equal(got[rows], args[6].expand_as(got[rows]))
 
 
 def _model(device, **flags):

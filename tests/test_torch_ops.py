@@ -77,6 +77,26 @@ def test_block_diag_and_gat_math_match_jax_and_pallas():
     np.testing.assert_allclose(got, jfg.fused_gat(h, att, *args, H), **LEAF)
 
 
+def test_fused_gat_matches_jax_kernel_on_a_ragged_graph_with_padding():
+    """N = 100 (on the card, a cluster of 7 blocks with a ragged last slab),
+    an all-masked row and padded agents without edges: the port's fused_gat
+    against JAX's Pallas kernel (interpret mode); a row without edges comes
+    out as exactly bo."""
+    rng = np.random.default_rng(5)
+    p = _gat_params(rng)
+    B, N, pad = 2, 100, 9
+    h = rng.normal(size=(B, N, 16)).astype(np.float32)
+    att = (rng.random((B, N, N)) < 0.1).astype(np.float32)
+    att[0, 37] = 0.0
+    att[:, N - pad:] = 0.0
+    att[:, :, N - pad:] = 0.0
+    args = [p[k] for k in ("wv", "a_src", "a_dst", "wo", "bo")]
+    got = fused_gat.fused_gat(*_t(h, att, *args), H).numpy()
+    np.testing.assert_allclose(got, jfg.fused_gat(h, att, *args, H), **LEAF)
+    np.testing.assert_array_equal(got[0, 37], p["bo"])
+    np.testing.assert_array_equal(got[:, N - pad:], np.broadcast_to(p["bo"], (B, pad, 16)))
+
+
 @pytest.mark.parametrize("route", [
     dict(), dict(use_pallas=True), dict(attend_kernel="pallas"),
 ])

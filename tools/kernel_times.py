@@ -9,10 +9,12 @@ errors on the inputs its GPU tests check.
 GPU tests make them, from seed 0 at config-4 widths (hidden = embed = HD =
 64, 4 heads, M = 5, T = 12): attend at the flagship's (500, 64) and the dense
 crowd's shapes, with 8% of the attend tile set; attend_packed at (500, 64);
-fused_gat at (25, 64); fused_decode at (500, 12, 64) and (240, 12, 128) with
-glorot-normal weights.  Each time is the median over 11 replays of a CUDA
-graph of 5 back-to-back calls (2 for fused_decode), as ``chip_smoke.py``
-times them, so the host's cost of a call is left out.
+fused_gat at (25, 64), the flagship's encoder, then at the dense crowd's
+encoder (12, 128) and the decoder step's (500, 64); fused_decode at
+(500, 12, 64) and (240, 12, 128) with glorot-normal weights.  Each time is
+the median over 11 replays of a CUDA graph of 5 back-to-back calls (2 for
+fused_decode), as ``chip_smoke.py`` times them, so the host's cost of a call
+is left out.
 
 ``decode_errors``: for each of ``kernel_inputs.DECODER_CASES`` (100 rollout
 graphs), the largest error over valid agents of fused_decode against
@@ -45,6 +47,7 @@ from kernel_inputs import (DECODER_CASES, attend_tile, decoder_case, decoder_par
 
 ATTEND_SHAPES = [(500, 64), (240, 128), (12, 128), (96, 128), (240, 256), (12, 256)]
 DECODE_SHAPES = [(500, 64), (240, 128)]
+GAT_SHAPES = [(12, 128), (500, 64)]  # after (25, 64), drawn after fused_decode's inputs
 W, H, M, T = 64, 4, 5, 12
 
 
@@ -82,8 +85,9 @@ def main() -> int:
     g = (t(25, 64, W), attend_tile(rng, 25, 64, density=0.08), t(W, W, scale=W ** -0.5),
          t(H, W // H, scale=0.25), t(H, W // H, scale=0.25), t(W, W, scale=W ** -0.5),
          t(W, scale=0.1))
+    fg = ops["fused_gat"]
     rows.append({"name": "fused_gat", "shape": [25, 64, W],
-                 "ms": time_ms(torch, lambda: ops["fused_gat"].fused_gat(*g, H))})
+                 "ms": time_ms(torch, lambda: fg.fused_gat(*g, H))})
     fd = ops["fused_decoder"]
     p, hw, hb = decoder_params(rng, W, W, W, H, M)
     hw, hb = fd.permute_head(hw, hb, M)
@@ -94,6 +98,10 @@ def main() -> int:
         d = (t(bk, n, W), t(bk, n, 2, scale=3), mask, *decoder_stream(rng, bk, T, n, M), p, hw, hb)
         rows.append({"name": "fused_decode", "shape": [bk, T, n],
                      "ms": time_ms(torch, lambda: fd.fused_decode(*d, **kw), inner=2)})
+    for b, n in GAT_SHAPES:
+        a = (t(b, n, W), attend_tile(rng, b, n, density=0.08), *g[2:])
+        rows.append({"name": "fused_gat", "shape": [b, n, W],
+                     "ms": time_ms(torch, lambda: fg.fused_gat(*a, H))})
     errors = []
     for case in DECODER_CASES:
         d, ckw = decoder_case(fd, *case)
