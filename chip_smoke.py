@@ -37,7 +37,18 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    reaches, from its own path, the op sweep), error, times, occupancy and
    two bounds: ``bound_ms`` prices every FLOP at the f32 rate outside the
    tensor cores, ``tc_bound_ms`` the matrix products at three TF32 passes
-   on the tensor cores (the 3xTF32 split that every kernel runs).
+   on the tensor cores (the 3xTF32 split that every kernel runs);
+8. (run before 7's line) the evaluator on the in-repo data
+   ``data/synthetic3000``, held-out scene ``univ`` (2,981 windows, at most
+   57 agents, N_max = 64), norm stats from the other four scenes: a route-A
+   checkpoint written by ``save_npz`` scored by ``mmtraj_torch.cli eval``,
+   whose line must equal ``evaluate()``'s; route A against the plain route
+   on the whole scene in turns (min-ADE/FDE within 1e-2 m, NLL within 1e-5
+   relative), with windows/s; exact launches a batch for route A,
+   ``rollout="modes"`` and "auto" at N_max = 128; batch-size and bucket
+   invariance and every pooled protocol on the first 300 windows;
+   ``autotune_eval_batch``'s sweep, and the host cost of the per-window
+   draws and of the final ``fsum``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -47,12 +58,19 @@ exits 1 before doing anything.  Usage: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -65,6 +83,11 @@ HBM_RATE = 3.35e12  # H100 SXM device-memory bytes/s (data sheet)
 KERNEL_TOL = 1e-4  # attend and GAT: atol = rtol
 ROLLOUT_TOL = 1e-3  # meters, on valid agents
 MAX_DIVERGED = 0.01  # share of (window, sample) rollouts allowed past ROLLOUT_TOL
+EVAL_DATA = Path(__file__).resolve().parent / "data" / "synthetic3000"
+EVAL_SUB = 300  # windows of the invariance and protocol checks
+EVAL_ADE_TOL = 1e-2  # meters, route A against plain on the whole scene
+EVAL_NLL_RTOL = 1e-5
+EVAL_INVARIANCE_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -161,6 +184,183 @@ def decode_cost(b, t, n, hd_, e, hd, h, m, n_weights):
     nbytes = 4 * (b * n * hd_ + 2 * b * n + b * n + b * t * n * m + b * t * n * 2
                   + n_weights + b * t * n * 2)
     return b * t * n * per, nbytes, b * t * n * products
+
+
+_LINE_NUMS = re.compile(r"([\w@.]+)=([-\d.]+)m?")
+
+
+def evaluator_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted, zero) -> None:
+    """Phase 8: the evaluator on the held-out scene, through its entry points
+    ``mmtraj_torch.cli.main`` and ``evaluate``.  ``counted(fn)`` runs ``fn``
+    with every launch count set to 0 and returns (its result, the counts),
+    which it also adds to the kernels line."""
+    from mmtraj_torch import cli as torch_cli
+    from mmtraj_torch import evaluate as ev
+    from mmtraj_torch.data.collate import WindowDataset
+    from mmtraj_torch.data.registry import load_split
+    from mmtraj_torch.data.transforms import compute_norm_stats
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.params import save_npz
+
+    t0 = time.perf_counter()
+    train_w, test_w = load_split(str(EVAL_DATA), "univ", TO, TP)
+    stats = compute_norm_stats(train_w, TO)
+    ds = WindowDataset(test_w, N)
+    check(ds.n_dropped == 0, f"evaluator: {ds.n_dropped} agents over N_max = {N}")
+    log(f"evaluator data: univ held out, {len(ds)} windows, {int(ds.mask.sum())} agents, at most "
+        f"{int(ds.mask.sum(1).max())} a window; {len(train_w)} training windows for the stats "
+        f"(mean {stats.mean.tolist()}, std {stats.std.tolist()}); "
+        f"{time.perf_counter() - t0:.2f} s to load")
+    model_a = Forecaster(route_a, TO, TP, device=dev, state=state)
+    model_p = Forecaster(plain_cfg, TO, TP, device=dev, state=state)
+    default_b = ev.vmem_friendly_batch(K, N, bytes_per_elem=4)
+    n_batches = math.ceil(len(ds) / default_b)
+    per_batch_a = {**zero, "fused_gat": TO + TP, "fused_decode": 1}
+    metric_keys = ("min_ade", "min_fde", "miss_rate_2m", "collision_rate", "nll")
+    summary = {"card": card, "windows": len(ds), "default_batch": default_b}
+
+    # 1. The CLI on a route-A checkpoint, against evaluate() with its arguments.
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_eval_", dir=Path(__file__).resolve().parent))
+    try:
+        ckpt = str(tmp / "route_a.npz")
+        save_npz(ckpt, state, stats, cfg.replace(
+            model=route_a, data=dataclasses.replace(cfg.data, data_dir=str(EVAL_DATA))))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            (code, counts) = counted(lambda: torch_cli.main(["eval", "--ckpt", ckpt, "--k", str(K),
+                                                         "--device", str(dev)]))
+        cli_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    line = out.getvalue().strip().splitlines()[-1]
+    log(f"cli eval ({cli_s:.2f} s): {line}")
+    want = {k: n_batches * v for k, v in per_batch_a.items()}
+    check(code == 0 and counts == want, f"cli eval: exit {code}, launches {counts}, want {want}")
+    nums = dict(_LINE_NUMS.findall(line))
+
+    # 2. Route A and the plain route on the whole scene, in turns.
+    runs = {"A": [], "plain": []}
+    for name in ("A", "plain", "A", "plain"):
+        model = model_a if name == "A" else model_p
+        t0 = time.perf_counter()
+        m, counts = counted(lambda: ev.evaluate(model, stats, ds, K))
+        secs = time.perf_counter() - t0
+        want = ({k: n_batches * v for k, v in per_batch_a.items()} if name == "A" else zero)
+        check(counts == want, f"evaluate {name}: launches {counts}, want {want}")
+        check(all(math.isfinite(m[k]) for k in metric_keys), f"evaluate {name}: {m}")
+        runs[name].append((m, secs))
+        log(f"evaluate route {name} on univ (B={default_b}): {len(ds) / secs:.1f} windows/s, "
+            f"{len(ds) * K / secs:.1f} window-rollouts/s ({secs:.2f} s); "
+            + ", ".join(f"{k} {m[k]:.6f}" for k in metric_keys) + f"; {card}")
+    m_a, m_p = runs["A"][0][0], runs["plain"][0][0]
+    shown = {"ADE": f"{m_a['min_ade']:.4f}", "FDE": f"{m_a['min_fde']:.4f}",
+             "MR@2m": f"{m_a['miss_rate_2m']:.3f}", "coll@0.2m": f"{m_a['collision_rate']:.3f}",
+             "windows": str(m_a["n_windows"]), "agents": str(m_a["n_agents"])}
+    check(all(nums.get(k) == v for k, v in shown.items()),
+          f"cli line {line!r} disagrees with evaluate() {shown}")
+    d_ade, d_fde = abs(m_a["min_ade"] - m_p["min_ade"]), abs(m_a["min_fde"] - m_p["min_fde"])
+    d_nll = abs(m_a["nll"] - m_p["nll"]) / abs(m_p["nll"])
+    check(d_ade <= EVAL_ADE_TOL and d_fde <= EVAL_ADE_TOL and d_nll <= EVAL_NLL_RTOL,
+          f"route A vs plain: |d ade| {d_ade}, |d fde| {d_fde}, nll rel {d_nll}")
+    repeat = max(abs(runs["A"][1][0][k] - m_a[k]) for k in metric_keys)
+    log(f"route A vs plain: |d min_ade| {d_ade:.3e} m, |d min_fde| {d_fde:.3e} m (tol "
+        f"{EVAL_ADE_TOL}), nll rel {d_nll:.3e} (tol {EVAL_NLL_RTOL}); route A run to run "
+        f"{repeat:.3e}")
+    summary.update(
+        route_a_vs_plain={"d_min_ade": d_ade, "d_min_fde": d_fde, "nll_rel": d_nll,
+                          "a_repeat": repeat},
+        windows_per_s={k: [len(ds) / s for _, s in v] for k, v in runs.items()},
+        window_rollouts_per_s={k: [len(ds) * K / s for _, s in v] for k, v in runs.items()},
+        metrics={"A": {k: m_a[k] for k in metric_keys}, "plain": {k: m_p[k] for k in metric_keys}})
+
+    # 3. Exact launches a batch: the mode rollout (route A) and "auto" at N_max = 128.
+    one = WindowDataset(test_w[:default_b], N)
+    _, counts = counted(lambda: ev.evaluate(model_a, stats, one, K, default_b,
+                                                   rollout="modes"))
+    want = {**zero, "fused_gat": TO + 2 * TP}
+    check(counts == want, f"evaluate modes: launches {counts}, want {want}")
+    auto = Forecaster(dataclasses.replace(plain_cfg, attend_kernel="auto"), TO, TP, device=dev,
+                      state=state)
+    m_auto, counts = counted(lambda: ev.evaluate(
+        auto, stats, WindowDataset(test_w[:default_b], 128), K, default_b))
+    want = {**zero, "attend": TO + TP}
+    check(counts == want, f"evaluate auto N_max=128: launches {counts}, want {want}")
+    check(all(math.isfinite(m_auto[k]) for k in metric_keys), f"evaluate auto: {m_auto}")
+    summary["launches_a_batch"] = {"A": per_batch_a, "A_modes": {**zero, "fused_gat": TO + 2 * TP},
+                                   "auto_n128": want}
+    log(f"launches a batch: route A {per_batch_a}; modes {{'fused_gat': {TO + 2 * TP}}}; "
+        f"auto at N_max=128 {want}")
+
+    # 4. Invariance on the card, on the first EVAL_SUB windows.
+    sub = WindowDataset(test_w[:EVAL_SUB], N)
+    base = ev.evaluate(model_a, stats, sub, K, batch_size=25)
+    rel = {}
+    for label, kw in (("batch 32 (last batch padded)", dict(batch_size=32)),
+                      ("buckets (16, 32, 64)", dict(batch_size=25, buckets=(16, 32, 64)))):
+        m = ev.evaluate(model_a, stats, sub, K, **kw)
+        rel[label] = max(abs(m[k] - base[k]) / max(abs(base[k]), 1e-12) for k in metric_keys)
+        check(rel[label] <= EVAL_INVARIANCE_RTOL and m["n_agents"] == base["n_agents"],
+              f"invariance, {label}: largest relative difference {rel[label]}")
+    summary["invariance_rel"] = rel
+    log(f"invariance on {len(sub)} windows against batch 25: {json.dumps(rel)} "
+        f"(tol {EVAL_INVARIANCE_RTOL})")
+
+    # 5. Every pooled protocol once, with its exact launches.
+    second = Forecaster(route_a, TO, TP, device=dev, generator=torch.Generator().manual_seed(1))
+    sub_batches = math.ceil(len(sub) / 25)
+    protocols = (
+        ("oversample 2", model_a, dict(oversample=2), per_batch_a),
+        ("oversample 2, per_window", model_a, dict(oversample=2, reduction="per_window"),
+         per_batch_a),
+        ("tta 2", model_a, dict(tta=2), {**zero, "fused_gat": 2 * TO + TP, "fused_decode": 2}),
+        ("ensemble of 2", [model_a, second], {},
+         {**zero, "fused_gat": 2 * (TO + TP), "fused_decode": 2}),
+    )
+    for label, model, kw, per_batch in protocols:
+        m, counts = counted(lambda: ev.evaluate(model, stats, sub, K, batch_size=25, **kw))
+        want = {k: sub_batches * v for k, v in per_batch.items()}
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        check(all(math.isfinite(m[k]) for k in metric_keys) and m["n_windows"] == len(sub)
+              and m["n_agents"] == base["n_agents"], f"{label}: {m}")
+        log(f"protocol {label}: " + ", ".join(f"{k} {m[k]:.6f}" for k in metric_keys)
+            + f"; launches {counts}")
+
+    # 6. The card's batch sweep, and the host cost of the draws and the fsum.
+    log(f"autotune_eval_batch (route A, N={N}, K={K}; vmem_friendly_batch's TPU-sized "
+        f"default {default_b}); {card}:")
+    best = ev.autotune_eval_batch(model_a, stats, N, K)
+    t0 = time.perf_counter()
+    m_best = ev.evaluate(model_a, stats, ds, K, batch_size=best)
+    secs = time.perf_counter() - t0
+    log(f"evaluate route A on univ at the picked B={best}: {len(ds) / secs:.1f} windows/s, "
+        f"{len(ds) * K / secs:.1f} window-rollouts/s; min_ade {m_best['min_ade']:.6f} "
+        f"(B={default_b}: {m_a['min_ade']:.6f}); {card}")
+    summary.update(autotune_best=best, best_windows_per_s=len(ds) / secs)
+    draws = {}
+    for b in sorted({default_b, best}):
+        win = range(b)
+
+        def draw():
+            ev.window_stream(model_a, (0, 0, 0), win, K, N)
+            torch.cuda.synchronize()
+
+        draw()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            draw()
+            times.append(time.perf_counter() - t0)
+        draws[b] = statistics.median(times) * 1e3
+    sums = [torch.rand((7, default_b), device=dev) for _ in range(n_batches)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev._metrics(sums, "per_agent", K, len(ds), 0)
+    fsum_ms = (time.perf_counter() - t0) * 1e3
+    summary.update(draw_ms_a_batch=draws, fsum_ms=fsum_ms)
+    log(f"host cost: per-window draws {json.dumps(draws)} ms a batch (median of 20, by batch); "
+        f"copy and fsum of {n_batches} batches' sums {fsum_ms:.2f} ms; {card}")
+    log("evaluator " + json.dumps(summary))
 
 
 def main() -> int:
@@ -514,6 +714,19 @@ def main() -> int:
     launches["attend_packed"] += sweep_counts["attend_packed"]  # its only caller
     for row in sweep:
         log("op_sweep " + json.dumps(row))
+
+    # -- 8. the evaluator ----------------------------------------------------------
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k, c in counts.items():
+            launches[k] += c
+        return out, counts
+
+    evaluator_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted,
+                    dict.fromkeys(counters, 0))
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

@@ -18,6 +18,8 @@ import json
 from dataclasses import dataclass
 from typing import Any
 
+SCENES = ("eth", "hotel", "univ", "zara1", "zara2")
+
 
 @dataclass(frozen=True)
 class ModelConfig:

@@ -7,7 +7,7 @@ the data's device and dtype.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -18,6 +18,18 @@ class NormStats(NamedTuple):
 
     mean: np.ndarray  # (2,)
     std: np.ndarray  # (2,)
+
+
+def compute_norm_stats(windows: Sequence[np.ndarray], obs_len: int) -> NormStats:
+    """Mean and std of the one-step offsets over the observed part of the
+    training windows, in numpy on the host; a std under 1e-6 becomes 1."""
+    deltas = [np.diff(w[:, :obs_len], axis=1).reshape(-1, 2) for w in windows if w.shape[0]]
+    if not deltas:
+        return NormStats(np.zeros(2, np.float32), np.ones(2, np.float32))
+    d = np.concatenate(deltas, axis=0)
+    std = d.std(axis=0)
+    std = np.where(std < 1e-6, 1.0, std)
+    return NormStats(d.mean(axis=0).astype(np.float32), std.astype(np.float32))
 
 
 def _like(a, x: torch.Tensor) -> torch.Tensor:

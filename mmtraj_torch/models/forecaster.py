@@ -13,10 +13,17 @@ joined with ``.``.  The math is the JAX package's, step for step:
   ``models/attn_encoder.py``; its last-step features are bridged with tanh.
 * ``rollout_k``: tile the K samples into the batch (flat row ``kk*B + b``)
   and decode 12 sampled steps, either step by step (``decode_rollout``) or in
-  one kernel launch (``use_fused_decoder``).
+  one kernel launch (``use_fused_decoder``); the random stream is drawn for
+  the whole call, or for each window from its own seed
+  (``_per_window_stream``), which the evaluator uses.
+* ``rollout_modes``: one trajectory per mixture component, following the
+  component's mean at every step.
+* ``decode_teacher``: the teacher-forced decode whose head outputs give the
+  evaluator's NLL.
 
 It runs on the card unless the caller asks for the CPU.  Training
-(``train=True``, ``remat=True``, dropout masks) is not ported yet.
+(``train=True`` on the encoder and the rollout, ``remat=True``, dropout
+masks) is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,8 +59,11 @@ def _no_training(train: bool = False, remat: bool = False, drop=None) -> None:
                          "train.py with autograd.Function wrappers")
 
 
-def _step(pp: Params, cfg: ModelConfig, carry: Carry, dxy_n, xy_abs, mask) -> Carry:
-    """Advance one frame: embed offset -> GRU -> social GAT residual."""
+def _step(pp: Params, cfg: ModelConfig, carry: Carry, dxy_n, xy_abs, mask,
+          train: bool = False) -> Carry:
+    """Advance one frame: embed offset -> GRU -> social GAT residual.
+    ``train`` marks the teacher-forced decode, on which "auto" keeps the
+    plain attend chain as the JAX package does."""
     x = torch.relu(dense(pp["embed"], dxy_n))
     carry = cell_apply(pp["cell"], cfg.cell, x, carry)
     if cfg.social:
@@ -61,7 +71,7 @@ def _step(pp: Params, cfg: ModelConfig, carry: Carry, dxy_n, xy_abs, mask) -> Ca
         for li in range(cfg.gat_layers):
             g = gat_apply(pp["gat" if li == 0 else f"gat_{li}"], carry.h, adj, mask,
                           cfg.num_heads, use_pallas=cfg.use_pallas,
-                          attend_kernel=cfg.attend_kernel)
+                          attend_kernel=cfg.attend_kernel, train=train)
             carry = Carry(h=carry.h + g, c=carry.c)
     return carry
 
@@ -141,16 +151,72 @@ class Forecaster(nn.Module):
             return gmm.head_apply(p["head"], h, cfg.num_mixtures, cfg.sigma_min, cfg.rho_max)
         return dense(p["head"], h)
 
+    # -- teacher-forced decode ------------------------------------------------
+    @torch.no_grad()
+    def decode_teacher(self, carry: Carry, xy_fut, dxy_fut_n, mask, drop=None):
+        """At step t emit the head output that predicts offset t from the
+        state before the step, then advance on the ground truth.  xy_fut
+        (B, N, Tp, 2) absolute, dxy_fut_n (B, N, Tp, 2) normalized offsets ->
+        GMMParams with leaves (B, N, Tp, ...), or (B, N, Tp, 2) for the
+        deterministic head."""
+        _no_training(drop=drop)
+        cfg, p = self.cfg, self.params()
+        xy_fut, dxy_fut_n = self._tensor(xy_fut), self._tensor(dxy_fut_n)
+        mask = self._tensor(mask, torch.bool)
+        outs = []
+        for t in range(xy_fut.shape[2]):
+            outs.append(self._head(p, carry.h))
+            carry = _step(p["dec"], cfg, carry, dxy_fut_n[:, :, t], xy_fut[:, :, t], mask,
+                          train=True)
+        if cfg.head == "gmm":
+            return gmm.GMMParams(*(torch.stack(leaf, dim=2) for leaf in zip(*outs)))
+        return torch.stack(outs, dim=2)
+
     # -- rollout random streams -----------------------------------------------
-    def _rollout_stream(self, Bk: int, N: int, generator: torch.Generator = None):
+    def _gumbel(self, u: torch.Tensor) -> torch.Tensor:
+        return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+    def _rollout_stream(self, Bk: int, N: int, generator: torch.Generator = None,
+                        sigma_scale: float = 1.0):
         """Pre-drawn rollout randomness on the device: (gumbel (Bk, T, N, M),
         normal (Bk, T, N, 2)), drawn from ``generator`` (the device's default
-        generator when None).  Same distributions as the JAX package's
-        stream, not the same numbers."""
+        generator when None), the normals scaled by ``sigma_scale``.  Same
+        distributions as the JAX package's stream, not the same numbers."""
         T, M = self.pred_len, self.cfg.num_mixtures
-        u = torch.rand((Bk, T, N, M), generator=generator, device=self.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+        gumbel = self._gumbel(torch.rand((Bk, T, N, M), generator=generator, device=self.device))
         normal = torch.randn((Bk, T, N, 2), generator=generator, device=self.device)
+        if sigma_scale != 1.0:
+            normal = normal * sigma_scale
+        return gumbel, normal
+
+    def _per_window_stream(self, keys, k: int, N: int, sigma_scale: float = 1.0,
+                           draw_n: int = None):
+        """Per-window randomness: window b's k sample streams come from a
+        generator on the device seeded with ``keys[b]`` alone, so sampled
+        metrics do not depend on batch size, batch position or padding.
+        keys (B,) integer seeds -> (gumbel (k*B, T, N, M), normal
+        (k*B, T, N, 2)), flat row ``kk*B + b`` as ``rollout_k`` tiles.
+
+        ``draw_n``: draw each window's stream at this canonical agent
+        capacity (>= N) and keep the first N slots.  Valid agents fill a
+        prefix of the slots, so a window evaluated in a narrower shape
+        bucket gets the values it would get in the full padded batch."""
+        T, M = self.pred_len, self.cfg.num_mixtures
+        n_draw = N if draw_n is None else int(draw_n)
+        if n_draw < N:
+            raise ValueError(f"draw_n={n_draw} must be >= N={N}")
+        B = len(keys)
+        u = torch.empty((B, k, T, n_draw, M), device=self.device)
+        normal = torch.empty((B, k, T, n_draw, 2), device=self.device)
+        g = torch.Generator(device=self.device)
+        for b, seed in enumerate(keys):
+            g.manual_seed(int(seed))
+            u[b].uniform_(generator=g)
+            normal[b].normal_(generator=g)
+        gumbel = self._gumbel(u[..., :N, :]).transpose(0, 1).reshape(k * B, T, N, M)
+        normal = normal[..., :N, :].transpose(0, 1).reshape(k * B, T, N, 2)
+        if sigma_scale != 1.0:
+            normal = normal * sigma_scale
         return gumbel, normal
 
     # -- sampling decode (autoregressive rollout) ----------------------------
@@ -182,14 +248,18 @@ class Forecaster(nn.Module):
     @torch.no_grad()
     def rollout_k(self, xy_obs, mask, stats: NormStats, k: int,
                   generator: torch.Generator = None, carry: Carry = None,
-                  stream=None, train: bool = False, remat: bool = False):
+                  stream=None, train: bool = False, remat: bool = False,
+                  sigma_scale: float = 1.0, keys=None, draw_n: int = None):
         """K sampled rollouts, encode once -> (K, B, N, Tp, 2) absolute meters.
 
-        ``generator`` draws the random stream on the device; ``stream``
-        passes a pre-drawn (gumbel (K*B, T, N, M), normal (K*B, T, N, 2))
-        instead, laid out as flat row ``kk*B + b`` (the JAX package's
-        ``_rollout_stream(key, K*B, N)`` draws it so).  ``carry``: a
-        precomputed encoder carry."""
+        ``generator`` draws the random stream on the device; ``keys`` (B,)
+        per-window integer seeds draw each window's own stream instead
+        (``_per_window_stream``, at the canonical capacity ``draw_n``);
+        ``stream`` passes a pre-drawn (gumbel (K*B, T, N, M), normal
+        (K*B, T, N, 2)), laid out as flat row ``kk*B + b`` (the JAX package's
+        ``_rollout_stream(key, K*B, N)`` draws it so), with ``sigma_scale``
+        already applied.  ``sigma_scale`` scales the drawn normals (the
+        within-component spread).  ``carry``: a precomputed encoder carry."""
         _no_training(train, remat)
         xy_obs, mask = self._tensor(xy_obs), self._tensor(mask, torch.bool)
         B, N = mask.shape
@@ -203,14 +273,48 @@ class Forecaster(nn.Module):
         xy_last = tile(xy_obs[:, :, -1])
         mask_k = tile(mask)
         if self.cfg.head == "gmm":
-            if stream is None:
-                stream = self._rollout_stream(k * B, N, generator)
+            if stream is None and keys is not None:
+                stream = self._per_window_stream(keys, k, N, sigma_scale, draw_n)
+            elif stream is None:
+                stream = self._rollout_stream(k * B, N, generator, sigma_scale)
             stream = tuple(self._tensor(s).contiguous() for s in stream)
         if self.cfg.use_fused_decoder:
             traj = self._decode_fused(carry_k, xy_last, mask_k, stats, stream)
         else:
             traj = self.decode_rollout(carry_k, xy_last, mask_k, stats, stream=stream)
         return traj.reshape((k, B) + traj.shape[1:])
+
+    @torch.no_grad()
+    def rollout_modes(self, xy_obs, mask, stats: NormStats, carry: Carry = None):
+        """One trajectory per mixture component -> (M, B, N, Tp, 2) absolute
+        meters: trajectory m follows component m's mean offset at every
+        step.  No randomness.  The M copies are tiled into the batch as in
+        ``rollout_k`` (flat row ``m*B + b`` follows component m); the steps
+        go through ``_step``, so ``use_pallas`` runs ``fused_gat``."""
+        cfg, p = self.cfg, self.params()
+        if cfg.head != "gmm":
+            raise ValueError("rollout_modes requires the GMM head")
+        M = cfg.num_mixtures
+        xy_obs, mask = self._tensor(xy_obs), self._tensor(mask, torch.bool)
+        B, N = mask.shape
+        if carry is None:
+            carry = self.encode(xy_obs, mask, stats)
+
+        def tile(a):
+            return a.repeat((M,) + (1,) * (a.ndim - 1))
+
+        carry = Carry(h=tile(carry.h), c=tile(carry.c))
+        xy, mask_m = tile(xy_obs[:, :, -1]), tile(mask)
+        comp = torch.arange(M, device=self.device).repeat_interleave(B)
+        pick = comp[:, None, None, None].expand(M * B, N, 1, 2)
+        outs = []
+        for _ in range(self.pred_len):
+            dxy_n = torch.gather(self._head(p, carry.h).mu, 2, pick)[:, :, 0]
+            xy = xy + denormalize(dxy_n, stats)
+            carry = _step(p["dec"], cfg, carry, dxy_n, xy, mask_m)
+            outs.append(xy)
+        traj = torch.stack(outs, dim=2)
+        return traj.reshape((M, B) + traj.shape[1:])
 
     def _decode_fused(self, carry: Carry, xy_last, mask, stats: NormStats, stream):
         """The whole rollout in one ``fused_decode`` launch -> (Bk, N, T, 2)."""

@@ -1,9 +1,12 @@
-"""Bivariate-Gaussian-mixture head and sampling on tensors (counterpart of
-``mmtraj/models/gmm.py``).  All head math runs in float32."""
+"""Bivariate-Gaussian-mixture head, NLL and sampling on tensors (counterpart
+of ``mmtraj/models/gmm.py``).  All head math runs in float32, and the
+mixture reduction of the NLL is a log-sum-exp."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import math
 
 import torch
 
@@ -40,6 +43,30 @@ def head_apply(p: Params, h: torch.Tensor, num_mixtures: int, sigma_min: float,
     sigma = (softplus(raw[..., 3 * M:5 * M]) + sigma_min).reshape(lead + (M, 2))
     rho = rho_max * torch.tanh(raw[..., 5 * M:])
     return GMMParams(logits, mu, sigma, rho)
+
+
+def nll(params: GMMParams, target: torch.Tensor) -> torch.Tensor:
+    """Negative log-likelihood of target (..., 2) under the mixture -> (...).
+
+    log N(x; mu, Sigma) of a bivariate Gaussian with correlation rho is
+    -log(2 pi sx sy sqrt(1 - rho^2)) - z / (2 (1 - rho^2)),
+    z = dx^2/sx^2 + dy^2/sy^2 - 2 rho dx dy / (sx sy)."""
+    x = target[..., None, :].float()  # (..., 1, 2)
+    d = (x - params.mu) / params.sigma  # (..., M, 2)
+    dx, dy = d[..., 0], d[..., 1]
+    one_m_rho2 = torch.clamp_min(1.0 - params.rho ** 2, 1e-6)
+    z = dx * dx + dy * dy - 2.0 * params.rho * dx * dy
+    log_norm = (-torch.log(2 * math.pi * params.sigma[..., 0] * params.sigma[..., 1])
+                - 0.5 * torch.log(one_m_rho2))
+    comp_logp = log_norm - z / (2.0 * one_m_rho2)  # (..., M)
+    log_pi = torch.log_softmax(params.logits, dim=-1)
+    return -torch.logsumexp(log_pi + comp_logp, dim=-1)
+
+
+def mixture_mean(params: GMMParams) -> torch.Tensor:
+    """Probability-weighted mean offset (..., 2)."""
+    pi = torch.softmax(params.logits, dim=-1)
+    return (pi[..., None] * params.mu).sum(dim=-2)
 
 
 def sample_from(params: GMMParams, gumbel: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

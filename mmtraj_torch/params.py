@@ -5,11 +5,14 @@ float32 tensors, every weight in the JAX ``(in, out)`` orientation.  It is
 what ``Forecaster.state_dict()`` returns and ``load_state_dict`` takes, and
 the layout of the JAX package's ``.pt`` export.  ``load_npz`` reads a
 checkpoint written by the JAX package's ``save_npz`` (flat ``/`` keys under
-``params/``, ``stats/mean|std``, ``meta/step``, ``meta/config_json``).
+``params/``, ``stats/mean|std``, ``meta/step``, ``meta/config_json``), and
+``save_npz`` writes that layout, which the JAX package's ``load_npz`` reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 from typing import Any, Dict, NamedTuple
 
@@ -102,6 +105,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> State:
     else:
         tree["head"] = dense_init(g, H, 2)
     return flatten(tree)
+
+
+def config_to_json(cfg: Config) -> str:
+    return json.dumps(dataclasses.asdict(cfg))
+
+
+def save_npz(path: str, state: State, stats: NormStats, cfg: Config, step: int = 0) -> None:
+    """Write ``state`` (a flat ``.``-keyed dict, as ``Forecaster.state_dict()``
+    gives it) in the JAX package's npz layout: to a temporary file first,
+    renamed into place, so a crash never leaves half a checkpoint."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = {"params/" + k.replace(".", "/"): np.asarray(torch.as_tensor(v).detach().cpu())
+            for k, v in state.items()}
+    flat["stats/mean"] = np.asarray(torch.as_tensor(stats.mean).cpu())
+    flat["stats/std"] = np.asarray(torch.as_tensor(stats.std).cpu())
+    flat["meta/step"] = np.asarray(step)
+    flat["meta/config_json"] = np.frombuffer(config_to_json(cfg).encode("utf-8"), dtype=np.uint8)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path if path.endswith(".npz") else path + ".npz")
 
 
 def load_npz(path: str) -> Checkpoint:

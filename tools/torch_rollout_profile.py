@@ -20,6 +20,13 @@ Options pick another cell: ``--n-max``, ``--batch``, ``--encoder`` and
 which takes the attend kernel at N >= 128).  The dense-crowd cell:
 ``--n-max 128 --batch 12 --routes plain,auto --encoder rnn|attn``.
 
+``--evaluate`` profiles the evaluator instead: ``mmtraj_torch.evaluate.evaluate``
+on the first ``--windows`` windows of the held-out scene ``univ`` of
+``data/synthetic3000`` (norm stats from the other four scenes) at
+``--batch`` windows a batch: wall time a batch (median of 3 runs), and under
+``torch.profiler`` over one run the device time by kernel a batch, the busy
+share, kernels a batch and the peak device memory.
+
 Prints one JSON line per route.  Needs a CUDA device; exits 1 without one.
 Usage: python tools/torch_rollout_profile.py [options]
 """
@@ -48,6 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=25)
     ap.add_argument("--encoder", default="rnn", choices=("rnn", "attn"))
     ap.add_argument("--routes", default="plain,A,B")
+    ap.add_argument("--evaluate", action="store_true")
+    ap.add_argument("--windows", type=int, default=240)
     args = ap.parse_args(argv)
     B, N = args.batch, args.n_max
     import torch
@@ -81,6 +90,8 @@ def main(argv=None) -> int:
     # copied from host memory, which waits for the stream, on every call.
     stats = NormStats(torch.zeros(2, device=dev), torch.full((2,), 0.4, device=dev))
     device_kind = torch.cuda.get_device_name(0)
+    if args.evaluate:
+        return profile_evaluate(args, routes, state, dev, device_kind)
 
     for name, cfg in routes.items():
         model = Forecaster(cfg, TO, TP, device=dev, state=state)
@@ -112,14 +123,7 @@ def main(argv=None) -> int:
                 call()
             torch.cuda.synchronize()
             prof_wall_us = (time.perf_counter() - t0) * 1e6
-        by_kernel = defaultdict(float)
-        launches, launch_us = 0, []
-        for evt in prof.events():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
-                by_kernel[evt.name] += evt.time_range.elapsed_us()
-                launches += 1
-            elif evt.name == "cudaLaunchKernel":
-                launch_us.append(evt.time_range.elapsed_us())
+        by_kernel, launches, launch_us = device_times(prof)
         busy_us = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({
@@ -133,6 +137,74 @@ def main(argv=None) -> int:
             "device_busy_share": busy_us / prof_wall_us if busy_us else None,
             "cuda_launch_kernel_us": statistics.mean(launch_us) if launch_us else None,
             "top_kernels_ms_per_call": [[k[:80], v / 3e3] for k, v in top],
+        }), flush=True)
+    return 0
+
+
+def device_times(prof):
+    """-> (device us by kernel name, device kernels, host us of each cudaLaunchKernel)."""
+    import torch
+
+    by_kernel = defaultdict(float)
+    launches, launch_us = 0, []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[evt.name] += evt.time_range.elapsed_us()
+            launches += 1
+        elif evt.name == "cudaLaunchKernel":
+            launch_us.append(evt.time_range.elapsed_us())
+    return by_kernel, launches, launch_us
+
+
+def profile_evaluate(args, routes, state, dev, device_kind) -> int:
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmtraj_torch.data.collate import WindowDataset
+    from mmtraj_torch.data.registry import load_split
+    from mmtraj_torch.data.transforms import compute_norm_stats
+    from mmtraj_torch.evaluate import evaluate
+    from mmtraj_torch.models.forecaster import Forecaster
+
+    data = Path(__file__).resolve().parents[1] / "data" / "synthetic3000"
+    train_w, test_w = load_split(str(data), "univ", TO, TP)
+    stats = compute_norm_stats(train_w, TO)
+    ds = WindowDataset(test_w[:args.windows], args.n_max)
+    n_batches = math.ceil(len(ds) / args.batch)
+    for name, cfg in routes.items():
+        model = Forecaster(cfg, TO, TP, device=dev, state=state)
+
+        def call():
+            out = evaluate(model, stats, ds, K, args.batch)
+            torch.cuda.synchronize()
+            return out
+
+        call()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            prof_wall_us = (time.perf_counter() - t0) * 1e6
+        by_kernel, launches, launch_us = device_times(prof)
+        busy_us = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        print(json.dumps({
+            "evaluate": True, "route": name, "n_max": args.n_max, "batch": args.batch,
+            "windows": len(ds), "device": device_kind,
+            "batch_ms": statistics.median(walls) / n_batches,
+            "windows_per_s": len(ds) / (statistics.median(walls) / 1e3),
+            "device_kernels_per_batch": launches / n_batches,
+            "device_busy_share": busy_us / prof_wall_us if busy_us else None,
+            "cuda_launch_kernel_us": statistics.mean(launch_us) if launch_us else None,
+            "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "top_kernels_ms_per_batch": [[k[:80], v / n_batches / 1e3] for k, v in top],
         }), flush=True)
     return 0
 
