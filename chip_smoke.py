@@ -48,7 +48,27 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    ``rollout="modes"`` and "auto" at N_max = 128; batch-size and bucket
    invariance and every pooled protocol on the first 300 windows;
    ``autotune_eval_batch``'s sweep, and the host cost of the per-window
-   draws and of the final ``fsum``.
+   draws and of the final ``fsum``;
+9. (run before 7's line) the port's bench: for routes plain, A and B, the
+   exact launches of one eager ``rollout_k`` call, the call replayed from a
+   CUDA graph against the eager call on one pre-drawn stream (within 1e-6 m
+   on valid agents), and two replays of a graph that draws its stream
+   inside giving different rollouts; then ``python -m
+   mmtraj_torch.benchmarks.bench`` run once in-process, its one JSON line
+   parsed and printed on a line of its own;
+10. (run before 7's line) training at config 4's full width and batch
+   (B = 16, N_max = 64): ``fused_gat`` and ``attend`` as autograd Functions
+   against their plain versions, forward and every input's gradient, at
+   (16, 64, 64) and (128, 64, 64); three steps of each loss (nll, variety
+   with n = 8, hybrid) under ``use_pallas`` against the plain route from the
+   same parameters and draws (loss within 1e-5 relative at every step;
+   parameters within ``PARAM_TOL``), with exact ``fused_gat`` launches a
+   step, and one nll step under the ``attend`` pin with its launches;
+   ``fit`` on ``data/synthetic3000`` (univ held out) under ``use_pallas`` with
+   EMA: ``FIT_STEPS`` steps uninterrupted, and the same run cut at a
+   checkpoint halfway and resumed, which must end bit-identical, with the
+   loss descending and the final eval finite; ``train_bench`` steps/s of
+   the plain route and ``use_pallas`` in turns, for nll and variety.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -66,7 +86,6 @@ import math
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -88,6 +107,14 @@ EVAL_SUB = 300  # windows of the invariance and protocol checks
 EVAL_ADE_TOL = 1e-2  # meters, route A against plain on the whole scene
 EVAL_NLL_RTOL = 1e-5
 EVAL_INVARIANCE_RTOL = 1e-5
+GRAPH_TOL = 1e-6  # meters: rollout_k replayed from a CUDA graph against eager, one stream
+TRAIN_STEPS, VARIETY_N, FIT_STEPS = 3, 8, 200
+TRAIN_LOSS_RTOL = 1e-5
+# Parameters after TRAIN_STEPS steps, use_pallas against plain.  Adam moves an
+# element by about lr * sign(g) while its moments are young, so an element
+# whose gradient is within rounding of 0 may move the other way: every
+# element within 2 lr a step, and 99% of them within PARAM_TOL.
+PARAM_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -97,13 +124,6 @@ def log(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn, reps: int = 11, inner: int = 5) -> float:
@@ -363,6 +383,215 @@ def evaluator_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted, z
     log("evaluator " + json.dumps(summary))
 
 
+def bench_phase(torch, dev, card, state, stats, xy_obs, mask, routes, counted, zero) -> None:
+    """Phase 9: the port's bench, ``mmtraj_torch.benchmarks.bench``."""
+    from mmtraj_torch.benchmarks import bench
+    from mmtraj_torch.models.forecaster import Forecaster
+
+    stream = None
+    for name, (model_cfg, expect) in routes.items():
+        model = Forecaster(model_cfg, TO, TP, device=dev, state=state)
+        if stream is None:
+            stream = model._rollout_stream(K * B, N, torch.Generator(device=dev).manual_seed(3))
+        _, counts = counted(lambda: model.rollout_k(xy_obs, mask, stats, K))
+        check(counts == {**zero, **expect}, f"bench route {name}: launches {counts}, want {expect}")
+        err = bench.graph_vs_eager(model, xy_obs, mask, stats, K, stream)
+        check(err <= GRAPH_TOL, f"bench route {name}: graph vs eager {err} m")
+        graph, out = bench.capture(lambda: model.rollout_k(xy_obs, mask, stats, K), dev)
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(not torch.equal(first, out), f"bench route {name}: a replay drew the same stream")
+        del graph
+        log(f"bench route {name}: launches an eager call {counts}; graph vs eager on one stream "
+            f"{err:.3e} m (tol {GRAPH_TOL}); two replays draw different streams")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = bench.main([])
+    lines = out.getvalue().strip().splitlines()
+    check(code == 0 and len(lines) == 1, f"bench printed {len(lines)} lines: {lines}")
+    rec = json.loads(lines[0])
+    keys = {"metric", "value", "unit", "vs_baseline", "vs_vectorized_host", "route", "device",
+            "tflops_per_sec", "mfu_pct", "mfu_peak"}
+    check(keys <= set(rec) and rec["value"] > 0 and rec["device"] == card,
+          f"bench line: {rec}")
+    log(f"bench ({time.perf_counter() - t0:.1f} s):")
+    log(lines[0])
+
+
+def training_phase(torch, dev, card, cfg, counted, zero) -> None:
+    """Phase 10: training at config 4's full width."""
+    from mmtraj_torch import train as tr
+    from mmtraj_torch.benchmarks import train_bench
+    from mmtraj_torch.data.registry import load_scene_windows
+    from mmtraj_torch.data.transforms import NormStats
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.ops import fused_attend, fused_gat
+    from mmtraj_torch.params import init_params
+    from mmtraj_torch.utils.logging import MetricsLogger
+
+    TB = cfg.train.batch_size
+    H = cfg.model.num_heads
+    state = init_params(cfg.model, torch.Generator().manual_seed(0))
+    gw = {k: state[f"dec.gat.{k}"].to(dev) for k in ("wv", "a_src", "a_dst", "wo", "bo")}
+
+    # a. The kernels as autograd Functions: forward and every input's gradient.
+    rng = np.random.default_rng(4)
+    for b in (TB, TB * 8):
+        h = torch.tensor(rng.normal(size=(b, N, 64)), dtype=torch.float32, device=dev)
+        att = torch.tensor(rng.random((b, N, N)) < 0.3, dtype=torch.float32, device=dev)
+        att[:, -1] = 0.0
+        up = torch.tensor(rng.normal(size=(b, N, 64)), dtype=torch.float32, device=dev)
+        for name in ("fused_gat", "attend"):
+            if name == "fused_gat":
+                leaves = [h] + [gw[k] for k in ("wv", "a_src", "a_dst", "wo", "bo")]
+                leaves = [x.clone().requires_grad_() for x in leaves]
+
+                def run(fn, xs):
+                    return fn(xs[0], att, *xs[1:], H)
+
+                kernel, plain = fused_gat.fused_gat, fused_gat.gat_math
+            else:
+                v = h @ gw["wv"]
+                leaves = [x.contiguous().clone().requires_grad_() for x in (
+                    v, v @ fused_gat._block_diag(gw["a_src"]),
+                    v @ fused_gat._block_diag(gw["a_dst"]))]
+
+                def run(fn, xs):
+                    return fn(*xs, att, H)
+
+                kernel, plain = fused_attend.attend, fused_attend.attend_math
+            with torch.enable_grad():
+                out_k, out_p = run(kernel, leaves), run(plain, leaves)
+                g_k = torch.autograd.grad(out_k, leaves, up)
+                g_p = torch.autograd.grad(out_p, leaves, up)
+            torch.cuda.synchronize()
+            err = (out_k - out_p).abs().max().item()
+            check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
+                  f"{name} Function at B={b}: forward err {err}")
+            g_err = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+                        for a, c in zip(g_k, g_p))
+            check(all(torch.allclose(a, c, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+                      for a, c in zip(g_k, g_p)), f"{name} Function at B={b}: gradients {g_err}")
+            log(f"{name} autograd Function ({b}, {N}, 64): forward max abs err {err:.3e}, "
+                f"gradients of {len(leaves)} inputs within {g_err:.3e} of their largest "
+                f"(tol {KERNEL_TOL})")
+
+    # b. Three steps of each loss, use_pallas against plain, same parameters and draws.
+    xy, mask = train_bench.fake_batch(TB, N, TO + TP, dev)
+    stats = NormStats(np.zeros(2, np.float32), np.ones(2, np.float32))
+    lr = cfg.train.lr
+    per_step = {"nll": 2 * (TO + TP), "variety": 2 * (TO + TP), "hybrid": 4 * (TO + TP)}
+
+    def train_run(model_cfg, loss_mode, kernel=None):
+        model = Forecaster(model_cfg, TO, TP, device=dev, state=state)
+        step = tr.make_train_step(model, tr.make_optimizer(cfg, model), stats,
+                                  loss_mode=loss_mode, variety_n=VARIETY_N)
+        losses, grads = [], None
+        for s in range(TRAIN_STEPS):
+            if kernel is None:
+                loss = step(xy, mask, s)
+            else:
+                loss, counts = counted(lambda: step(xy, mask, s))
+                want = {**zero, kernel: per_step[loss_mode]}
+                check(counts == want, f"train {loss_mode} step {s}: launches {counts}, want {want}")
+            losses.append(float(loss))
+            if s == 0:
+                grads = [p.grad.clone() for p in model.parameters()]
+        return losses, grads, torch.cat([p.detach().flatten() for p in model.parameters()])
+
+    with torch.enable_grad():
+        for loss_mode in ("nll", "variety", "hybrid"):
+            t0 = time.perf_counter()
+            lp, gp, pp = train_run(cfg.model, loss_mode)
+            t_plain = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lk, gk, pk = train_run(dataclasses.replace(cfg.model, use_pallas=True), loss_mode,
+                                   "fused_gat")
+            t_kernel = time.perf_counter() - t0
+            rel = [abs(a - c) / abs(c) for a, c in zip(lk, lp)]
+            check(max(rel) <= TRAIN_LOSS_RTOL, f"train {loss_mode}: losses {lk} vs {lp}")
+            dp = (pk - pp).abs()
+            share = (dp > PARAM_TOL).float().mean().item()
+            check(dp.max().item() <= 2 * lr * TRAIN_STEPS and share <= 0.01,
+                  f"train {loss_mode}: parameters max |d| {dp.max().item()}, share past "
+                  f"{PARAM_TOL} {share}")
+            g_rel = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+                        for a, c in zip(gk, gp))
+            log(f"train {loss_mode} (B={TB}, N={N}, {TRAIN_STEPS} steps): use_pallas losses "
+                f"{[f'{x:.7f}' for x in lk]}, plain {[f'{x:.7f}' for x in lp]} (largest rel "
+                f"{max(rel):.2e}, tol {TRAIN_LOSS_RTOL}); step-1 gradients within {g_rel:.2e} of "
+                f"each leaf's largest; parameters max |d| {dp.max().item():.3e}, median "
+                f"{dp.median().item():.3e}, share past {PARAM_TOL}: {share:.2e}; fused_gat "
+                f"{per_step[loss_mode]} launches a step; wall {t_kernel:.2f} s vs plain "
+                f"{t_plain:.2f} s")
+        lk, _, _ = train_run(dataclasses.replace(cfg.model, attend_kernel="pallas"), "nll",
+                             "attend")
+        lp, _, _ = train_run(cfg.model, "nll")
+        rel = abs(lk[0] - lp[0]) / abs(lp[0])
+        check(rel <= TRAIN_LOSS_RTOL, f"train nll, attend pin: loss {lk[0]} vs {lp[0]}")
+        log(f"train nll under attend_kernel='pallas': attend {per_step['nll']} launches a step; "
+            f"step-1 loss rel {rel:.2e}")
+
+        # c. fit on the in-repo data, with EMA, a checkpoint, a resume and the final eval.
+        fit_cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model, use_pallas=True),
+            data=dataclasses.replace(cfg.data, data_dir=str(EVAL_DATA)),
+            train=dataclasses.replace(cfg.train, steps=FIT_STEPS, eval_every=0, log_every=10,
+                                      ckpt_every=FIT_STEPS // 2, ema_decay=0.99, k_samples=K))
+        n_test = len(load_scene_windows(str(EVAL_DATA), "univ", TO, TP))
+        want_fit = {**zero, "fused_gat": FIT_STEPS * per_step["nll"]
+                    + math.ceil(n_test / TB) * (TO + 2 * TP)}
+        tmp = Path(tempfile.mkdtemp(prefix="tmp_fit_", dir=Path(__file__).resolve().parent))
+        try:
+            def fit(c, resume=False):
+                return tr.fit(c, logger=MetricsLogger(c.train.out_dir, quiet=True), resume=resume,
+                              device=dev)
+
+            whole_cfg = fit_cfg.replace(train=dataclasses.replace(fit_cfg.train,
+                                                                  out_dir=str(tmp / "a")))
+            t0 = time.perf_counter()
+            whole, counts = counted(lambda: fit(whole_cfg))
+            fit_s = time.perf_counter() - t0
+            check(counts == want_fit, f"fit: launches {counts}, want {want_fit}")
+            cut = fit_cfg.replace(train=dataclasses.replace(fit_cfg.train, steps=FIT_STEPS // 2,
+                                                            out_dir=str(tmp / "b")))
+            fit(cut)
+            resumed = fit(cut.replace(train=dataclasses.replace(cut.train, steps=FIT_STEPS)),
+                          resume=True)
+        finally:
+            shutil.rmtree(tmp)
+    same = all(torch.equal(whole.state[k], resumed.state[k]) for k in whole.state)
+    check(same and whole.eval_metrics == resumed.eval_metrics,
+          "fit: the resumed run differs from the uninterrupted one")
+    losses = [lv for _, lv in whole.history]
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]), f"fit: the loss did not descend {losses}")
+    m = whole.eval_metrics
+    check(all(math.isfinite(m[k]) for k in ("min_ade", "min_fde", "nll")), f"fit eval: {m}")
+    log(f"fit on data/synthetic3000 (univ held out, use_pallas, EMA 0.99, B={TB}, "
+        f"{FIT_STEPS} steps, {fit_s:.1f} s with the final eval; {card}): loss "
+        f"{[round(x, 4) for x in losses]}; resumed from step {FIT_STEPS // 2}: bit-identical "
+        f"parameters and metrics; final eval (EMA) min_ade {m['min_ade']:.6f} min_fde "
+        f"{m['min_fde']:.6f} nll {m['nll']:.6f}; launches {counts}")
+
+    # d. train_bench, the plain route and use_pallas in turns.
+    rows = {}
+    with torch.enable_grad():
+        for loss_mode in ("nll", "variety"):
+            for use_pallas in (False, True, True, False):
+                r = train_bench.bench_train_step(TB, min_seconds=1.0, use_pallas=use_pallas,
+                                                 loss_mode=loss_mode, variety_n=VARIETY_N,
+                                                 device=dev, flops=not rows.get(loss_mode))
+                rows.setdefault(loss_mode, []).append(r)
+                log("train_bench " + train_bench._fmt(r))
+    summary = {mode: {"plain_steps_per_s": [r.steps_per_sec for r in rs if r.route == "plain"],
+                      "pallas_steps_per_s": [r.steps_per_sec for r in rs if r.route == "pallas"],
+                      "flops_per_step": rs[0].flops_per_step, "mfu_plain": rs[0].mfu}
+               for mode, rs in rows.items()}
+    log("training " + json.dumps({"card": card, "train_bench": summary}))
+
+
 def main() -> int:
     import torch
 
@@ -370,6 +599,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    from mmtraj_torch.benchmarks.bench import card_line
     from mmtraj_torch.config import config4
     from mmtraj_torch.data.transforms import NormStats
     from mmtraj_torch.graph.adjacency import proximity_adjacency
@@ -379,10 +609,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)  # inference records no graph; phase 10 turns it on
     dev = torch.device("cuda")
 
     # -- 1. versions and the card ---------------------------------------------
-    card = gpu_line()
+    card = card_line()
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     log(card)
@@ -727,6 +958,15 @@ def main() -> int:
 
     evaluator_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted,
                     dict.fromkeys(counters, 0))
+
+    # -- 9. the bench ------------------------------------------------------------------
+    bench_routes = {"plain": (plain_cfg, {}), "A": (route_a, {"fused_gat": TO, "fused_decode": 1}),
+                    "B": (route_b, {"attend": TO + TP})}
+    bench_phase(torch, dev, card, state, stats, xy_obs, mask, bench_routes, counted,
+                dict.fromkeys(counters, 0))
+
+    # -- 10. training --------------------------------------------------------------------
+    training_phase(torch, dev, card, cfg, counted, dict.fromkeys(counters, 0))
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

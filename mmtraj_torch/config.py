@@ -1,4 +1,4 @@
-"""Configuration dataclasses and the config-4 preset of the PyTorch port.
+"""Configuration dataclasses and the presets 1-5 of the PyTorch port.
 
 A copy of the JAX package's ``mmtraj/config.py`` with the same field names, so
 that a checkpoint's ``meta/config_json`` reads unchanged.  The port keeps its
@@ -8,7 +8,9 @@ In the port, ``use_pallas=True`` selects the hand-written Hopper GAT kernel
 (``ops/fused_gat.py``), ``attend_kernel="pallas"`` the Hopper attend kernel
 (``ops/fused_attend.py``) and ``use_fused_decoder=True`` the Hopper rollout
 kernel (``ops/fused_decoder.py``).  ``remat``, ``remat_policy`` and
-``dropout`` are read only by training, which the port does not have yet.
+``dropout`` are read only by training.  Preset 1 (the LSTM) and preset 5's
+``data_parallel`` name parts that are not ported yet; they raise where they
+are used.
 """
 
 from __future__ import annotations
@@ -100,6 +102,37 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+def config1() -> Config:
+    """ETH-hotel single scene: plain LSTM encoder-decoder, single-mode
+    output, obs=8/pred=12, batch 8."""
+    return Config(
+        model=ModelConfig(cell="lstm", social=False, head="deterministic", num_heads=1),
+        data=DataConfig(scene="hotel", n_max=24),
+        train=TrainConfig(batch_size=8, k_samples=1),
+    )
+
+
+def config2() -> Config:
+    """5-scene leave-one-out: social graph-attention encoder + GRU decoder,
+    deterministic output."""
+    return Config(
+        model=ModelConfig(cell="gru", social=True, head="deterministic", num_heads=1,
+                          remat=True),
+        data=DataConfig(scene="zara1", n_max=32),
+        train=TrainConfig(batch_size=32, k_samples=1),
+    )
+
+
+def config3() -> Config:
+    """Multimodal K=20 bivariate-Gaussian-mixture decoder with best-of-K
+    ADE/FDE eval, masked variable agent counts."""
+    return Config(
+        model=ModelConfig(cell="gru", social=True, head="gmm", num_heads=1, remat=True),
+        data=DataConfig(scene="zara1", n_max=32),
+        train=TrainConfig(batch_size=32, k_samples=20),
+    )
+
+
 def config4() -> Config:
     """Multi-head graph attention over dense crowds (UCY-univ, 50+ agents a
     frame) with padded fixed-shape graphs: N_max=64, 4 heads, GMM with M=5,
@@ -109,6 +142,37 @@ def config4() -> Config:
         data=DataConfig(scene="univ", n_max=64),
         train=TrainConfig(batch_size=16, k_samples=20),
     )
+
+
+def config5() -> Config:
+    """Large-batch multi-scene training: config 4's model at batch 256,
+    data-parallel over several devices (not ported: ROADMAP.md queue 1
+    item 6)."""
+    return Config(
+        model=ModelConfig(cell="gru", social=True, head="gmm", num_heads=4, remat=True),
+        data=DataConfig(scene="univ", n_max=64),
+        train=TrainConfig(batch_size=256, k_samples=20, data_parallel=True),
+    )
+
+
+PRESETS = {
+    "1": config1,
+    "2": config2,
+    "3": config3,
+    "4": config4,
+    "5": config5,
+    "config1": config1,
+    "config2": config2,
+    "config3": config3,
+    "config4": config4,
+    "config5": config5,
+}
+
+
+def get_config(name: str) -> Config:
+    if name not in PRESETS:
+        raise KeyError(f"unknown config preset {name!r}; choose from 1..5")
+    return PRESETS[name]()
 
 
 def config_from_json(s: str) -> Config:

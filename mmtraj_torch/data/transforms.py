@@ -2,7 +2,8 @@
 
 Counterpart of ``mmtraj/data/transforms.py``.  ``NormStats`` may hold numpy
 arrays (as a checkpoint stores them) or tensors; the functions move them to
-the data's device and dtype.
+the data's device and dtype.  ``augment_windows`` is the training
+augmentation: a rotation per window, and optionally a reflection.
 """
 
 from __future__ import annotations
@@ -47,3 +48,18 @@ def normalize(dxy: torch.Tensor, stats: NormStats) -> torch.Tensor:
 
 def denormalize(dxy_n: torch.Tensor, stats: NormStats) -> torch.Tensor:
     return dxy_n * _like(stats.std, dxy_n) + _like(stats.mean, dxy_n)
+
+
+def augment_windows(xy: torch.Tensor, mask: torch.Tensor, theta: torch.Tensor,
+                    det: torch.Tensor) -> torch.Tensor:
+    """Rotate window b of xy (B, N, T, 2) absolute meters by theta[b], then
+    reflect its y axis where det[b] = -1 (the JAX package's
+    ``augment_windows``, with its random angles and flips drawn by the
+    caller).  Pairwise distances, and so the social graph, are unchanged;
+    offsets rotate with the window; padded rows stay zero; the mask is not
+    touched."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    rot = torch.stack([torch.stack([c, -s], dim=-1), torch.stack([det * s, det * c], dim=-1)],
+                      dim=-2)  # (B, 2, 2)
+    del mask  # padded rows are zeros; the orthogonal map keeps them zero
+    return torch.einsum("bij,bntj->bnti", rot, xy)

@@ -17,7 +17,9 @@ models (``evaluate`` with a list of same-configuration models,
 ``evaluate_mixed`` with any members); ``rollout="modes"`` (one trajectory
 per mixture component); ``buckets`` of agent capacity.  Besides min-ADE/FDE
 it reports the miss rate at 2 m, the collision rate at 0.2 m and the
-teacher-forced NLL of the ground truth.
+teacher-forced NLL of the ground truth.  Both entry points run under
+``torch.no_grad()``: the model's parameters require gradients, and an
+evaluation records no autograd graph.
 """
 
 from __future__ import annotations
@@ -303,6 +305,7 @@ def _check_protocol(reduction: str, oversample: int, tta: int) -> None:
         raise ValueError(f"tta must be >= 1, got {tta}")
 
 
+@torch.no_grad()
 def evaluate_mixed(members, stats: NormStats, test_ds: WindowDataset, k: int = 20,
                    batch_size: int = None, seed: int = 0, reduction: str = "per_agent",
                    sigma_scale: float = 1.0, oversample: int = 1,
@@ -348,6 +351,7 @@ def evaluate_mixed(members, stats: NormStats, test_ds: WindowDataset, k: int = 2
     }
 
 
+@torch.no_grad()
 def evaluate(model, stats: NormStats, test_ds: WindowDataset, k: int = 20,
              batch_size: int = None, seed: int = 0, mesh=None, reduction: str = "per_agent",
              sigma_scale: float = 1.0, rollout: str = "sample", oversample: int = 1,

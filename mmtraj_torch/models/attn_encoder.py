@@ -106,10 +106,9 @@ def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
 
     xy_obs (B, N, To, 2) absolute meters (the per-frame proximity graphs),
     dxy_n (B, N, To, 2) normalized offsets (the content stream), mask (B, N).
-    Training (``drop`` masks, ``train=True``) is not ported yet."""
+    Training this encoder (``drop`` masks, ``train=True``) is not ported yet."""
     if train or drop is not None:
-        raise not_ported("training (train=True, remat=True, dropout)",
-                         "train.py with autograd.Function wrappers")
+        raise not_ported("encoder='attn' training", "item 2, single-device training")
     B, N, T, _ = xy_obs.shape
     x = dense(params["proj"], torch.relu(dense(params["embed"], dxy_n)))  # (B, N, T, H)
     x = x + sinusoidal_positions(T, x.shape[-1], x.device)

@@ -24,11 +24,11 @@ def check_cell(kind: str, p: Params = None) -> None:
     if kind != "gru":
         raise NotImplementedError(
             f"cell={kind!r}: the port has only the GRU so far; the LSTM comes "
-            "with the rest of ROADMAP.md queue 1 item 2")
+            "with ROADMAP.md queue 1 item 3")
     if p is not None and ("bh" in p or "wh_n" in p):
         raise NotImplementedError(
             "the import-only cell params 'bh'/'wh_n' are not ported yet "
-            "(ROADMAP.md queue 1 item 2)")
+            "(ROADMAP.md queue 1 item 3)")
 
 
 def cell_init(generator: torch.Generator, kind: str, din: int, hidden: int) -> Params:

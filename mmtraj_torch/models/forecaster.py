@@ -19,14 +19,22 @@ joined with ``.``.  The math is the JAX package's, step for step:
 * ``rollout_modes``: one trajectory per mixture component, following the
   component's mean at every step.
 * ``decode_teacher``: the teacher-forced decode whose head outputs give the
-  evaluator's NLL.
+  evaluator's NLL and the training loss.
+* ``loss`` (teacher-forced GMM NLL, MSE for the deterministic head) and
+  ``loss_variety`` (min over sampled rollouts): the training objectives.
 
-It runs on the card unless the caller asks for the CPU.  Training
-(``train=True`` on the encoder and the rollout, ``remat=True``, dropout
-masks) is not ported yet.
+The parameters require gradients.  ``encode``, ``decode_teacher`` and the
+losses record an autograd graph wherever grad mode is on; ``rollout_k``,
+``decode_rollout`` and ``rollout_modes`` run under ``torch.no_grad()``
+unless ``train=True``, so inference records none.  Random draws of training
+(dropout masks, the variety loss's stream) come in pre-drawn, as the
+rollout's stream does.  It runs on the card unless the caller asks for the
+CPU.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -38,7 +46,7 @@ from mmtraj_torch.models import gmm
 from mmtraj_torch.models.attn_encoder import attn_encode
 from mmtraj_torch.models.cells import Carry, cell_apply, init_carry
 from mmtraj_torch.models.gat import gat_apply
-from mmtraj_torch.models.layers import Params, dense
+from mmtraj_torch.models.layers import Params, dense, maybe_remat
 from mmtraj_torch.ops import fused_decoder
 from mmtraj_torch.params import State, check_supported, init_params, not_ported, unflatten
 
@@ -53,18 +61,17 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _no_training(train: bool = False, remat: bool = False, drop=None) -> None:
-    if train or remat or drop is not None:
-        raise not_ported("training (train=True, remat=True, dropout)",
-                         "train.py with autograd.Function wrappers")
-
-
-def _step(pp: Params, cfg: ModelConfig, carry: Carry, dxy_n, xy_abs, mask,
+def _step(pp: Params, cfg: ModelConfig, carry: Carry, dxy_n, xy_abs, mask, drop=None,
           train: bool = False) -> Carry:
     """Advance one frame: embed offset -> GRU -> social GAT residual.
-    ``train`` marks the teacher-forced decode, on which "auto" keeps the
-    plain attend chain as the JAX package does."""
+
+    ``drop``: variational dropout masks {"emb": (B, N, E), "gat": (B, N, H)},
+    scaled by 1/keep, one draw a forward pass reused at every step.
+    ``train`` marks a differentiated path, on which "auto" keeps the plain
+    attend chain as the JAX package does."""
     x = torch.relu(dense(pp["embed"], dxy_n))
+    if drop is not None:
+        x = x * drop["emb"]
     carry = cell_apply(pp["cell"], cfg.cell, x, carry)
     if cfg.social:
         adj = proximity_adjacency(xy_abs, mask, cfg.adjacency_radius)
@@ -72,8 +79,30 @@ def _step(pp: Params, cfg: ModelConfig, carry: Carry, dxy_n, xy_abs, mask,
             g = gat_apply(pp["gat" if li == 0 else f"gat_{li}"], carry.h, adj, mask,
                           cfg.num_heads, use_pallas=cfg.use_pallas,
                           attend_kernel=cfg.attend_kernel, train=train)
+            if drop is not None:
+                g = g * drop["gat"]
             carry = Carry(h=carry.h + g, c=carry.c)
     return carry
+
+
+def dropout_masks(cfg: ModelConfig, B: int, N: int, generator: torch.Generator,
+                  device=None):
+    """Two variational masks a coder -> (encoder masks, decoder masks), each
+    {"emb": (B, N, E), "gat": (B, N, H)}: Bernoulli(keep) scaled by 1/keep
+    (the JAX package's ``_dropout_masks``, drawn from ``generator``)."""
+    keep = 1.0 - cfg.dropout
+
+    def bern(d):
+        u = torch.rand((B, N, d), generator=generator, device=device)
+        return (u < keep).to(torch.float32) / keep
+
+    enc = {"emb": bern(cfg.embed_dim), "gat": bern(cfg.hidden_dim)}
+    return enc, {"emb": bern(cfg.embed_dim), "gat": bern(cfg.hidden_dim)}
+
+
+def _grad_mode(train: bool):
+    """Recording as the caller has it for a differentiated path, else none."""
+    return contextlib.nullcontext() if train else torch.no_grad()
 
 
 class _Params(nn.Module):
@@ -86,7 +115,7 @@ class _Params(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, _Params(v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def tree(self) -> dict:
         out = dict(self._parameters)
@@ -114,7 +143,9 @@ class Forecaster(nn.Module):
         if any(k.endswith((".bh", ".wh_n")) for k in state):
             raise not_ported("the import-only cell params 'bh'/'wh_n'",
                              "LSTM, imported GRU biases and bf16")
-        tree = unflatten({k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+        # Copied, so that models built from one state never share storage:
+        # training updates the parameters in place.
+        tree = unflatten({k: torch.as_tensor(v, dtype=torch.float32).to(self.device, copy=True)
                           for k, v in state.items()})
         for k, v in tree.items():
             self.add_module(k, _Params(v))
@@ -127,20 +158,28 @@ class Forecaster(nn.Module):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     # -- encoder ------------------------------------------------------------
-    @torch.no_grad()
     def encode(self, xy_obs, mask, stats: NormStats, drop=None, train: bool = False) -> Carry:
-        """xy_obs (B, N, To, 2) absolute meters, mask (B, N) -> bridged carry."""
-        _no_training(train, drop=drop)
+        """xy_obs (B, N, To, 2) absolute meters, mask (B, N) -> bridged carry.
+        ``drop``: the encoder's dropout masks; ``train`` marks a
+        differentiated path.  The step body is checkpointed per
+        ``cfg.remat`` where a graph is recorded."""
         cfg, p = self.cfg, self.params()
         xy_obs, mask = self._tensor(xy_obs), self._tensor(mask, torch.bool)
         B, N = mask.shape
         dxy_n = normalize(to_relative(xy_obs), stats)
         if cfg.encoder == "attn":
+            if train or drop is not None:
+                raise not_ported("encoder='attn' training", "item 2, single-device training")
             h = torch.tanh(dense(p["bridge_h"], attn_encode(p["enc"], cfg, xy_obs, dxy_n, mask)))
             return Carry(h=h, c=torch.zeros_like(h))
+
+        def body(carry, dxy_t, xy_t):
+            return _step(p["enc"], cfg, carry, dxy_t, xy_t, mask, drop, train=train)
+
+        body = maybe_remat(cfg, body)
         carry = init_carry((B, N), cfg.hidden_dim, self.device)
         for t in range(xy_obs.shape[2]):
-            carry = _step(p["enc"], cfg, carry, dxy_n[:, :, t], xy_obs[:, :, t], mask)
+            carry = body(carry, dxy_n[:, :, t], xy_obs[:, :, t])
         h = torch.tanh(dense(p["bridge_h"], carry.h))
         return Carry(h=h, c=torch.zeros_like(carry.c))
 
@@ -152,22 +191,25 @@ class Forecaster(nn.Module):
         return dense(p["head"], h)
 
     # -- teacher-forced decode ------------------------------------------------
-    @torch.no_grad()
     def decode_teacher(self, carry: Carry, xy_fut, dxy_fut_n, mask, drop=None):
         """At step t emit the head output that predicts offset t from the
         state before the step, then advance on the ground truth.  xy_fut
         (B, N, Tp, 2) absolute, dxy_fut_n (B, N, Tp, 2) normalized offsets ->
         GMMParams with leaves (B, N, Tp, ...), or (B, N, Tp, 2) for the
-        deterministic head."""
-        _no_training(drop=drop)
+        deterministic head.  ``drop``: the decoder's dropout masks."""
         cfg, p = self.cfg, self.params()
         xy_fut, dxy_fut_n = self._tensor(xy_fut), self._tensor(dxy_fut_n)
         mask = self._tensor(mask, torch.bool)
+
+        def body(carry, dxy_t, xy_t):
+            out = self._head(p, carry.h)
+            return _step(p["dec"], cfg, carry, dxy_t, xy_t, mask, drop, train=True), out
+
+        body = maybe_remat(cfg, body)
         outs = []
         for t in range(xy_fut.shape[2]):
-            outs.append(self._head(p, carry.h))
-            carry = _step(p["dec"], cfg, carry, dxy_fut_n[:, :, t], xy_fut[:, :, t], mask,
-                          train=True)
+            carry, out = body(carry, dxy_fut_n[:, :, t], xy_fut[:, :, t])
+            outs.append(out)
         if cfg.head == "gmm":
             return gmm.GMMParams(*(torch.stack(leaf, dim=2) for leaf in zip(*outs)))
         return torch.stack(outs, dim=2)
@@ -220,32 +262,35 @@ class Forecaster(nn.Module):
         return gumbel, normal
 
     # -- sampling decode (autoregressive rollout) ----------------------------
-    @torch.no_grad()
     def decode_rollout(self, carry: Carry, xy_last, mask, stats: NormStats,
                        generator: torch.Generator = None, stream=None,
                        train: bool = False, remat: bool = False):
         """One sampled rollout -> absolute positions (B, N, Tp, 2), meters.
         ``stream``: pre-drawn (gumbel, normal); drawn from ``generator`` when
-        None."""
-        _no_training(train, remat)
+        None.  Runs under ``torch.no_grad()`` unless ``train``; ``remat``
+        checkpoints the step body per ``cfg.remat`` (the variety loss)."""
         cfg, p = self.cfg, self.params()
-        B, N = mask.shape
-        if cfg.head == "gmm" and stream is None:
-            stream = self._rollout_stream(B, N, generator)
-        xy, outs = xy_last, []
-        for t in range(self.pred_len):
-            out = self._head(p, carry.h)
-            if cfg.head == "gmm":
-                dxy_n = gmm.sample_from(out, stream[0][:, t], stream[1][:, t])
-            else:
-                dxy_n = out
-            xy = xy + denormalize(dxy_n, stats)
-            carry = _step(p["dec"], cfg, carry, dxy_n, xy, mask)
-            outs.append(xy)
-        return torch.stack(outs, dim=2)
+        with _grad_mode(train):
+            B, N = mask.shape
+            if cfg.head == "gmm" and stream is None:
+                stream = self._rollout_stream(B, N, generator)
+
+            def body(carry, xy, gum_t, nrm_t):
+                out = self._head(p, carry.h)
+                dxy_n = gmm.sample_from(out, gum_t, nrm_t) if cfg.head == "gmm" else out
+                xy = xy + denormalize(dxy_n, stats)
+                return _step(p["dec"], cfg, carry, dxy_n, xy, mask, train=train), xy
+
+            if remat:
+                body = maybe_remat(cfg, body)
+            xy, outs = xy_last, []
+            for t in range(self.pred_len):
+                draws = (stream[0][:, t], stream[1][:, t]) if cfg.head == "gmm" else (None, None)
+                carry, xy = body(carry, xy, *draws)
+                outs.append(xy)
+            return torch.stack(outs, dim=2)
 
     # -- public API ----------------------------------------------------------
-    @torch.no_grad()
     def rollout_k(self, xy_obs, mask, stats: NormStats, k: int,
                   generator: torch.Generator = None, carry: Carry = None,
                   stream=None, train: bool = False, remat: bool = False,
@@ -259,30 +304,40 @@ class Forecaster(nn.Module):
         (K*B, T, N, 2)), laid out as flat row ``kk*B + b`` (the JAX package's
         ``_rollout_stream(key, K*B, N)`` draws it so), with ``sigma_scale``
         already applied.  ``sigma_scale`` scales the drawn normals (the
-        within-component spread).  ``carry``: a precomputed encoder carry."""
-        _no_training(train, remat)
-        xy_obs, mask = self._tensor(xy_obs), self._tensor(mask, torch.bool)
-        B, N = mask.shape
-        if carry is None:
-            carry = self.encode(xy_obs, mask, stats)
+        within-component spread).  ``carry``: a precomputed encoder carry.
+        ``train``: a differentiated rollout (the variety loss), recorded for
+        autograd; otherwise the call runs under ``torch.no_grad()``.
+        ``remat``: checkpoint the decode step per ``cfg.remat``."""
+        if self.cfg.use_fused_decoder and (train or remat):
+            raise ValueError(
+                "use_fused_decoder=True cannot serve a differentiated rollout "
+                "(loss=variety/hybrid): the fused decoder kernel has no backward and "
+                "the train/remat flags do not apply to it; train with the plain "
+                "decode path (use_fused_decoder=False)")
+        with _grad_mode(train):
+            xy_obs, mask = self._tensor(xy_obs), self._tensor(mask, torch.bool)
+            B, N = mask.shape
+            if carry is None:
+                carry = self.encode(xy_obs, mask, stats)
 
-        def tile(a):
-            return a.repeat((k,) + (1,) * (a.ndim - 1))
+            def tile(a):
+                return a.repeat((k,) + (1,) * (a.ndim - 1))
 
-        carry_k = Carry(h=tile(carry.h), c=tile(carry.c))
-        xy_last = tile(xy_obs[:, :, -1])
-        mask_k = tile(mask)
-        if self.cfg.head == "gmm":
-            if stream is None and keys is not None:
-                stream = self._per_window_stream(keys, k, N, sigma_scale, draw_n)
-            elif stream is None:
-                stream = self._rollout_stream(k * B, N, generator, sigma_scale)
-            stream = tuple(self._tensor(s).contiguous() for s in stream)
-        if self.cfg.use_fused_decoder:
-            traj = self._decode_fused(carry_k, xy_last, mask_k, stats, stream)
-        else:
-            traj = self.decode_rollout(carry_k, xy_last, mask_k, stats, stream=stream)
-        return traj.reshape((k, B) + traj.shape[1:])
+            carry_k = Carry(h=tile(carry.h), c=tile(carry.c))
+            xy_last = tile(xy_obs[:, :, -1])
+            mask_k = tile(mask)
+            if self.cfg.head == "gmm":
+                if stream is None and keys is not None:
+                    stream = self._per_window_stream(keys, k, N, sigma_scale, draw_n)
+                elif stream is None:
+                    stream = self._rollout_stream(k * B, N, generator, sigma_scale)
+                stream = tuple(self._tensor(s).contiguous() for s in stream)
+            if self.cfg.use_fused_decoder:
+                traj = self._decode_fused(carry_k, xy_last, mask_k, stats, stream)
+            else:
+                traj = self.decode_rollout(carry_k, xy_last, mask_k, stats, stream=stream,
+                                           train=train, remat=remat)
+            return traj.reshape((k, B) + traj.shape[1:])
 
     @torch.no_grad()
     def rollout_modes(self, xy_obs, mask, stats: NormStats, carry: Carry = None):
@@ -315,6 +370,57 @@ class Forecaster(nn.Module):
             outs.append(xy)
         traj = torch.stack(outs, dim=2)
         return traj.reshape((M, B) + traj.shape[1:])
+
+    # -- training objectives -------------------------------------------------
+    def _split(self, xy, name: str):
+        To = self.obs_len
+        if xy.shape[2] != To + self.pred_len:
+            raise ValueError(f"{name} expects full windows of {To}+{self.pred_len} frames, "
+                             f"got T={xy.shape[2]}")
+        return xy[:, :, :To], xy[:, :, To:]
+
+    def loss(self, xy, mask, stats: NormStats, drop=None) -> torch.Tensor:
+        """Training objective on full windows xy (B, N, To+Tp, 2) -> scalar.
+        GMM head: mixture NLL of the normalized target offsets; deterministic
+        head: squared error on them.  Masked mean over valid agent-steps, the
+        denominator at least 1.  ``drop``: (encoder, decoder) dropout masks
+        (``dropout_masks``), or None for no dropout."""
+        xy, mask = self._tensor(xy), self._tensor(mask, torch.bool)
+        xy_obs, xy_fut = self._split(xy, "loss")
+        dxy_fut_n = normalize(to_relative(xy), stats)[:, :, self.obs_len:]
+        drop_enc, drop_dec = drop if drop is not None else (None, None)
+        carry = self.encode(xy_obs, mask, stats, drop_enc, train=True)
+        outs = self.decode_teacher(carry, xy_fut, dxy_fut_n, mask, drop_dec)
+        if self.cfg.head == "gmm":
+            per_step = gmm.nll(outs, dxy_fut_n)  # (B, N, Tp)
+        else:
+            per_step = ((outs - dxy_fut_n) ** 2).sum(-1)
+        w = mask[..., None].to(torch.float32)
+        denom = torch.clamp_min(w.sum() * per_step.shape[-1], 1.0)
+        return (per_step * w).sum() / denom
+
+    def loss_variety(self, xy, mask, stats: NormStats, stream, n_samples: int, drop=None,
+                     fde_weight: float = 0.0) -> torch.Tensor:
+        """Winner-takes-all objective -> scalar: each agent's smallest mean
+        squared position error over ``n_samples`` sampled rollouts (plus
+        ``fde_weight`` times its final-step squared error), masked mean over
+        agents.  ``stream``: the rollouts' pre-drawn (gumbel, normal) for
+        n_samples*B graphs; ``drop``: the encoder's dropout masks only (the
+        rollout runs without dropout, as inference does).  Gradients flow
+        through the chosen components' means and spreads and the whole
+        recurrence; the component choice gets none."""
+        xy, mask = self._tensor(xy), self._tensor(mask, torch.bool)
+        xy_obs, gt = self._split(xy, "loss_variety")
+        carry = self.encode(xy_obs, mask, stats, drop, train=True)
+        preds = self.rollout_k(xy_obs, mask, stats, n_samples, carry=carry, stream=stream,
+                               train=True, remat=True)  # (n, B, N, Tp, 2)
+        sq = ((preds - gt[None]) ** 2).sum(-1)  # (n, B, N, Tp)
+        err = sq.mean(-1)
+        if fde_weight > 0.0:
+            err = err + fde_weight * sq[..., -1]
+        best = err.amin(0)  # ties share the gradient, as JAX's min does
+        w = mask.to(torch.float32)
+        return (best * w).sum() / torch.clamp_min(w.sum(), 1.0)
 
     def _decode_fused(self, carry: Carry, xy_last, mask, stats: NormStats, stream):
         """The whole rollout in one ``fused_decode`` launch -> (Bk, N, T, 2)."""

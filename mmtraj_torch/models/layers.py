@@ -1,19 +1,44 @@
 """Leaf math on tensors (counterpart of ``mmtraj/models/layers.py``).
 
 Parameters are plain dicts of tensors in the JAX ``(in, out)`` orientation:
-``dense`` computes ``x @ w + b``.
+``dense`` computes ``x @ w + b``.  ``maybe_remat`` checkpoints a time step's
+body for the backward pass, as the JAX package's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, object]
 
 NEG_INF = -1e9
+
+
+def maybe_remat(cfg, body: Callable) -> Callable:
+    """``body`` recomputed in the backward pass instead of keeping its
+    intermediates, per ``cfg.remat``/``cfg.remat_policy`` (the JAX package's
+    ``maybe_remat``, ``mmtraj/models/layers.py:19``): policy "full" saves
+    only the body's inputs (``torch.utils.checkpoint``, non-reentrant).  The
+    body draws no random numbers, so no generator state is kept for the
+    recomputation.  Where nothing records a graph (inference) the body runs
+    as it is; "dots" and "dots_no_batch" are not ported."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return body
+    if cfg.remat_policy in ("dots", "dots_no_batch"):
+        from mmtraj_torch.params import not_ported
+
+        raise not_ported(f"remat_policy={cfg.remat_policy!r}", "item 2, single-device training")
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def remat_body(*args):
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return remat_body
 
 
 def glorot(generator: torch.Generator, shape) -> torch.Tensor:
@@ -64,6 +89,6 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> t
     """Softmax over ``dim`` with mask==False entries absent; a row with no
     valid entry gives zeros (exp(0) * 0 over a 1e-20 floor), never NaN."""
     logits = torch.where(mask, logits, NEG_INF)
-    m = logits.amax(dim=dim, keepdim=True)
+    m = logits.amax(dim=dim, keepdim=True).detach()  # JAX's stop_gradient
     e = torch.exp(logits - m) * mask
     return e / e.sum(dim=dim, keepdim=True).clamp_min(1e-20)

@@ -49,7 +49,7 @@ def attend_math(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
         logits = s_src[:, :, hh, None] + s_dst[:, None, :, hh]
         logits = torch.where(logits > 0, logits, 0.2 * logits)
         logits = torch.where(attend > 0, logits, NEG_INF)
-        m = logits.amax(dim=2, keepdim=True)
+        m = logits.amax(dim=2, keepdim=True).detach()  # JAX's stop_gradient
         e = torch.exp(logits - m) * attend
         alpha = e / e.sum(dim=2, keepdim=True).clamp_min(1e-20)
         cols.append(alpha @ v[:, :, hh * dh:(hh + 1) * dh])
@@ -84,11 +84,43 @@ def _launch(name: str, v, s_src, s_dst, att, num_heads: int) -> torch.Tensor:
     return out
 
 
+class _Attend(torch.autograd.Function):
+    """The attend kernel forward with the JAX package's backward: autograd of
+    ``attend_math`` for v, s_src and s_dst on the saved inputs
+    (``mmtraj/ops/fused_attend.py:_bwd``); the 0/1 tile and ``num_heads``
+    get none, as in JAX.  There is no backward kernel.  On CPU tensors the
+    forward is ``attend_math`` itself (the CPU tests drive the Function that
+    way)."""
+
+    @staticmethod
+    def forward(ctx, v, s_src, s_dst, att, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(v, s_src, s_dst, att)
+        if not v.is_cuda:
+            return attend_math(v, s_src, s_dst, att, num_heads)
+        _check(v, s_src, s_dst, att, num_heads)
+        out = _launch("attend", v, s_src, s_dst, att, num_heads)
+        attend.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        v, s_src, s_dst, att = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((v, s_src, s_dst), ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = attend_math(*inputs, att, ctx.num_heads)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None, None)
+
+
 def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
            att: torch.Tensor, num_heads: int, group: int = 8,
            packed: bool = False) -> torch.Tensor:
     """``attend_math`` through a Hopper kernel for CUDA tensors; a CPU tensor
-    takes ``attend_math`` itself.  ``att`` is the 0/1 attend tile.
+    takes ``attend_math`` itself.  ``att`` is the 0/1 attend tile.  The
+    unpacked kernel is differentiable (``_Attend``).
 
     The signature and defaults are those of the JAX package's
     ``attend_pallas``.  ``packed=True`` launches the lane-packed kernel
@@ -102,17 +134,19 @@ def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
         return attend_packed(v, s_src, s_dst, att, num_heads)
     if not v.is_cuda:
         return attend_math(v, s_src, s_dst, att, num_heads)
-    _check(v, s_src, s_dst, att, num_heads)
-    out = _launch("attend", v, s_src, s_dst, att, num_heads)
-    attend.launches += 1
-    return out
+    return _Attend.apply(v, s_src, s_dst, att, num_heads)
 
 
 def attend_packed(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
                   att: torch.Tensor, num_heads: int) -> torch.Tensor:
     """``attend_math`` through the lane-packed Hopper kernel (a pair of
     graphs a block; an odd B leaves the last block's second graph idle) for
-    CUDA tensors; a CPU tensor takes ``attend_math`` itself."""
+    CUDA tensors; a CPU tensor takes ``attend_math`` itself.  It has no
+    backward (only the op sweep calls it) and raises on every device when
+    asked for a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (v, s_src, s_dst)):
+        raise ValueError("attend(packed=True) has no backward; call it under torch.no_grad() "
+                         "or use the unpacked kernel")
     if not v.is_cuda:
         return attend_math(v, s_src, s_dst, att, num_heads)
     _check(v, s_src, s_dst, att, num_heads)

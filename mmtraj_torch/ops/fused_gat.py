@@ -2,7 +2,8 @@
 
 Counterpart of ``mmtraj/ops/fused_gat.py``.  ``gat_math`` is the plain
 PyTorch version; ``fused_gat`` is the wrapper of the Hopper kernel in
-``csrc/gat.cu``.
+``csrc/gat.cu``, a ``torch.autograd.Function`` whose backward is autograd of
+``gat_math``, as the JAX package's ``custom_vjp`` differentiates it.
 
 Kernel note.  Replaces ``mmtraj/ops/fused_gat.py:_fused_gat_fwd_impl``
 (kernel ``_gat_kernel``).  On the H100 it is bound by operations: at the main
@@ -47,11 +48,46 @@ def gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tenso
     return attend_math(v, s_src, s_dst, attend, num_heads) @ wo + bo
 
 
+class _FusedGat(torch.autograd.Function):
+    """The kernel forward with the JAX package's backward: autograd of
+    ``gat_math`` on the saved inputs (``mmtraj/ops/fused_gat.py:_bwd``, the
+    VJP of ``gat_math``).  ``attend`` gets the gradient of ``gat_math`` too,
+    as JAX's VJP returns one, but only when the caller's ``attend`` requires
+    it (the model's 0/1 tile, made from a bool adjacency, never does);
+    ``num_heads`` gets none.  There is no backward kernel, as in JAX.  On CPU
+    tensors the forward is ``gat_math`` itself (the CPU tests drive the
+    Function that way)."""
+
+    @staticmethod
+    def forward(ctx, h, attend, wv, a_src, a_dst, wo, bo, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(h, attend, wv, a_src, a_dst, wo, bo)
+        if not h.is_cuda:
+            return gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
+        return _launch(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = gat_math(*inputs, ctx.num_heads)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,)
+
+
 def fused_gat(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tensor:
-    """``gat_math`` through the Hopper kernel for CUDA tensors; a CPU tensor
-    takes ``gat_math`` itself."""
+    """``gat_math`` through the Hopper kernel for CUDA tensors, differentiable
+    (``_FusedGat``); a CPU tensor takes ``gat_math`` itself."""
     if not h.is_cuda:
         return gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
+    return _FusedGat.apply(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
+
+
+def _launch(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tensor:
+    """One launch of ``mmtraj_gat`` on checked CUDA inputs; counted in
+    ``fused_gat.launches``."""
     B, N, D = h.shape
     H = num_heads
     HD = wv.shape[1]

@@ -7,6 +7,9 @@ the layout of the JAX package's ``.pt`` export.  ``load_npz`` reads a
 checkpoint written by the JAX package's ``save_npz`` (flat ``/`` keys under
 ``params/``, ``stats/mean|std``, ``meta/step``, ``meta/config_json``), and
 ``save_npz`` writes that layout, which the JAX package's ``load_npz`` reads.
+The optimizer state travels as ``opt/{i}`` leaves in optax's flatten order
+(``train.Optimizer.state_leaves``), so a run of either package resumes in the
+other.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +37,7 @@ class Checkpoint(NamedTuple):
     stats: NormStats
     config: Config
     step: int
+    opt_leaves: Optional[List[np.ndarray]] = None  # optax's flatten order; None if absent
 
 
 def not_ported(what: str, roadmap_item: str) -> NotImplementedError:
@@ -111,10 +115,13 @@ def config_to_json(cfg: Config) -> str:
     return json.dumps(dataclasses.asdict(cfg))
 
 
-def save_npz(path: str, state: State, stats: NormStats, cfg: Config, step: int = 0) -> None:
+def save_npz(path: str, state: State, stats: NormStats, cfg: Config, step: int = 0,
+             opt_leaves=None) -> None:
     """Write ``state`` (a flat ``.``-keyed dict, as ``Forecaster.state_dict()``
-    gives it) in the JAX package's npz layout: to a temporary file first,
-    renamed into place, so a crash never leaves half a checkpoint."""
+    gives it) in the JAX package's npz layout, with the optimizer's leaves
+    (``opt_leaves``, optax's flatten order) as ``opt/{i}``: to a temporary
+    file first, renamed into place, so a crash never leaves half a
+    checkpoint."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = {"params/" + k.replace(".", "/"): np.asarray(torch.as_tensor(v).detach().cpu())
             for k, v in state.items()}
@@ -122,13 +129,16 @@ def save_npz(path: str, state: State, stats: NormStats, cfg: Config, step: int =
     flat["stats/std"] = np.asarray(torch.as_tensor(stats.std).cpu())
     flat["meta/step"] = np.asarray(step)
     flat["meta/config_json"] = np.frombuffer(config_to_json(cfg).encode("utf-8"), dtype=np.uint8)
+    for i, leaf in enumerate(opt_leaves or ()):
+        flat[f"opt/{i}"] = np.asarray(leaf)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **flat)
     os.replace(tmp, path if path.endswith(".npz") else path + ".npz")
 
 
 def load_npz(path: str) -> Checkpoint:
-    """Read a checkpoint written by the JAX package's ``save_npz``."""
+    """Read a checkpoint written by either package's ``save_npz``, with its
+    optimizer leaves where it has them."""
     if not path.endswith(".npz") and not os.path.isfile(path):
         path = path + ".npz"
     with np.load(path) as z:
@@ -138,4 +148,5 @@ def load_npz(path: str) -> Checkpoint:
     stats = NormStats(flat.pop("stats/mean"), flat.pop("stats/std"))
     state = {k[len("params/"):].replace("/", "."): torch.from_numpy(np.array(v, np.float32))
              for k, v in flat.items() if k.startswith("params/")}
-    return Checkpoint(state, stats, cfg, step)
+    opt_keys = sorted((k for k in flat if k.startswith("opt/")), key=lambda k: int(k[4:]))
+    return Checkpoint(state, stats, cfg, step, [flat[k] for k in opt_keys] or None)

@@ -147,8 +147,9 @@ def test_decode_teacher_and_nll_match_jax(route, setup):
     stats = NormStats(MEAN, STD)
     txy, tmask = torch.from_numpy(xy), torch.from_numpy(mask)
     tdxy_n = normalize(to_relative(txy), stats)[:, :, TO:]
-    got_outs = model.decode_teacher(model.encode(txy[:, :, :TO], tmask, stats), txy[:, :, TO:],
-                                    tdxy_n, tmask)
+    with torch.no_grad():  # both are differentiable now; the evaluator records no graph
+        got_outs = model.decode_teacher(model.encode(txy[:, :, :TO], tmask, stats),
+                                        txy[:, :, TO:], tdxy_n, tmask)
     for got_leaf, want_leaf in zip(got_outs, outs):
         assert got_leaf.shape == want_leaf.shape
         np.testing.assert_allclose(got_leaf.numpy(), np.asarray(want_leaf), **LEAF)

@@ -152,15 +152,31 @@ def test_unknown_encoder_raises_value_error():
 
 
 def test_training_flags_and_imported_params_raise():
-    cfg = ModelConfig(hidden_dim=16, embed_dim=16, num_heads=2)
+    """Training runs on the plain decoder and the rnn encoder; the fused
+    decoder has no backward (ValueError, as in JAX), and what is not ported
+    names its ROADMAP item."""
+    cfg = ModelConfig(hidden_dim=16, embed_dim=16, num_heads=2, remat=True)
     model = Forecaster(cfg, 8, 12, device="cpu", generator=torch.Generator().manual_seed(0))
     xy, mask = torch.zeros(1, 4, 8, 2), torch.ones(1, 4, dtype=torch.bool)
     stats = transforms.NormStats(np.zeros(2, np.float32), np.ones(2, np.float32))
     for kw in (dict(train=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            model.rollout_k(xy, mask, stats, 2, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.encode(xy, mask, stats, train=True)
+        assert model.rollout_k(xy, mask, stats, 2, **kw).shape == (2, 1, 4, 12, 2)
+    assert model.rollout_k(xy, mask, stats, 2, train=True).requires_grad
+    assert not model.rollout_k(xy, mask, stats, 2).requires_grad
+    assert model.encode(xy, mask, stats, train=True).h.requires_grad
+    fused = Forecaster(dataclasses.replace(cfg, use_fused_decoder=True), 8, 12, device="cpu",
+                       state=model.state_dict())
+    for kw in (dict(train=True), dict(remat=True)):
+        with pytest.raises(ValueError, match="use_fused_decoder"):
+            fused.rollout_k(xy, mask, stats, 2, **kw)
+    attn = Forecaster(dataclasses.replace(cfg, encoder="attn"), 8, 12, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: item 2"):
+        attn.encode(xy, mask, stats, train=True)
+    dots = Forecaster(dataclasses.replace(cfg, remat_policy="dots"), 8, 12, device="cpu",
+                      state=model.state_dict())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: item 2"):
+        dots.encode(xy, mask, stats, train=True)
     state = dict(model.state_dict())
     state["dec.cell.bh"] = torch.zeros(48)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

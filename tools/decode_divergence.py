@@ -1,6 +1,12 @@
 #!/usr/bin/env python
 """Where fused_decode and reference_decode part ways, on the inputs the GPU
-tests check (``kernel_inputs.DECODER_CASES``, 100 rollout graphs each).
+tests check (``kernel_inputs.DECODER_CASES``, 100 rollout graphs each), and
+on chip_smoke.py's route-A check: config 4 at full width, weights from seed
+0, the bench inputs (numpy seed 0, B = 25, N = 64), K = 20 and the stream a
+device generator seeded 1 draws for ``rollout_k``; there the kernel starts
+from route A's encoder state (``fused_gat``) and the reference from the
+plain route's, as the two routes' ``rollout_k`` do, and the float64 run from
+the plain route's.
 
 A rollout is a chain of discrete decisions: each agent's Gumbel pick of a
 mixture component, and each pair's side of the adjacency radius.  Two
@@ -60,6 +66,45 @@ def float64_run(fd, h0, xy0, mask, gumbel, normal, p, hw, hb, *, num_heads, num_
     return torch.stack(outs, 1), torch.stack(gaps, 1), torch.stack(margins, 1)
 
 
+def route_a_case(fd):
+    """chip_smoke.py's route-A inputs -> (kernel args, reference args, kw)."""
+    import dataclasses
+
+    import numpy as np
+
+    from mmtraj_torch.config import config4
+    from mmtraj_torch.data.transforms import NormStats
+    from mmtraj_torch.models.forecaster import Forecaster
+
+    B, N, TO, TP, K = 25, 64, 8, 12, 20
+    dev = torch.device("cuda")
+    cfg = config4().model
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False, attend_kernel="xla",
+                                    use_fused_decoder=False)
+    plain = Forecaster(plain_cfg, TO, TP, device=dev, generator=torch.Generator().manual_seed(0))
+    route_a = Forecaster(dataclasses.replace(plain_cfg, use_pallas=True, use_fused_decoder=True),
+                         TO, TP, device=dev, state=plain.state_dict())
+    stats = NormStats(torch.zeros(2, device=dev), torch.full((2,), 0.4, device=dev))
+    rng = np.random.default_rng(0)
+    steps = rng.normal(size=(B, N, TO + TP, 2)).astype(np.float32) * 0.4
+    xy = np.cumsum(steps, axis=2) + rng.normal(size=(B, N, 1, 2)).astype(np.float32) * 5
+    xy_obs = torch.tensor(xy[:, :, :TO], dtype=torch.float32, device=dev)
+    mask = torch.tensor(rng.random((B, N)) < 0.75, device=dev)
+    gumbel, normal = plain._rollout_stream(K * B, N, torch.Generator(device=dev).manual_seed(1))
+    p = plain.params()
+    hw, hb = fd.permute_head(p["head"]["w"], p["head"]["b"], cfg.num_mixtures)
+    kw = dict(num_heads=cfg.num_heads, num_mixtures=cfg.num_mixtures,
+              radius=cfg.adjacency_radius, sigma_min=cfg.sigma_min, rho_max=cfg.rho_max,
+              stats_mean=stats.mean, stats_std=stats.std)
+
+    def args(model):
+        h = model.encode(xy_obs, mask, stats).h.repeat(K, 1, 1).contiguous()
+        return (h, xy_obs[:, :, -1].repeat(K, 1, 1).contiguous(), mask.repeat(K, 1),
+                gumbel.contiguous(), normal.contiguous(), p["dec"], hw, hb)
+
+    return args(route_a), args(plain), kw
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("decode_divergence: no CUDA device is available", file=sys.stderr)
@@ -67,15 +112,18 @@ def main() -> int:
     from mmtraj_torch.ops import fused_decoder as fd
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    cases = [(list(case), *decoder_case(fd, *case)) for case in DECODER_CASES]
+    cases = [(name, args, args, kw) for name, args, kw in cases]
+    cases.append(("route A, chip_smoke stream", *route_a_case(fd)))
     rows = []
-    for case in DECODER_CASES:
-        args, kw = decoder_case(fd, *case)
+    for case, args, ref_args, kw in cases:
         mask = args[2]
         got = fd.fused_decode(*args, **kw)
-        ref = fd.reference_decode(*args, **kw)
-        exact, gap, margin = float64_run(fd, *args, **kw)
+        ref = fd.reference_decode(*ref_args, **kw)
+        exact, gap, margin = float64_run(fd, *ref_args, **kw)
         exact = exact.float()
-        row = {"case": list(case), "kernel_vs_ref": rollout_errors(got, ref, mask, TOL),
+        row = {"case": case, "kernel_vs_ref": rollout_errors(got, ref, mask, TOL),
                "kernel_vs_f64": rollout_errors(got, exact, mask, TOL),
                "ref_vs_f64": rollout_errors(ref, exact, mask, TOL), "past": []}
         err = torch.where(mask[:, None, :, None], (got - ref).abs(), 0.0).amax(-1)  # (B, T, N)

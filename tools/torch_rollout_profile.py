@@ -70,6 +70,7 @@ def main(argv=None) -> int:
     from mmtraj_torch.models.forecaster import Forecaster
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)  # the parameters require grad; inference records no graph
     dev = torch.device("cuda")
     base = dataclasses.replace(config4().model, attend_kernel="xla", encoder=args.encoder)
     all_routes = {
