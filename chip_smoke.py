@@ -68,7 +68,21 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    EMA: ``FIT_STEPS`` steps uninterrupted, and the same run cut at a
    checkpoint halfway and resumed, which must end bit-identical, with the
    loss descending and the final eval finite; ``train_bench`` steps/s of
-   the plain route and ``use_pallas`` in turns, for nll and variety.
+   the plain route and ``use_pallas`` in turns, for nll and variety;
+11. (run before 7's line) the rest of single-device training at the same
+   width and batch: ``CHUNK_STEPS`` steps in chunks of ``CHUNK_M``, each
+   step a replay of a CUDA graph (``make_multi_train_step``), against as
+   many per-step eager steps from the same parameters, batches and draws,
+   for nll and variety, plain and ``use_pallas`` (losses within 1e-5
+   relative, parameters within ``PARAM_TOL``, exact ``fused_gat`` launches
+   at capture); ``fit`` in chunks of ``CHUNK_M`` cut and resumed
+   (bit-identical), with the loss descending; ``train_bench`` per step and
+   in chunks in turns, and the graphed step's profile; the attention
+   encoder's training, ``use_pallas`` against plain; the remat policies'
+   gradients against "full", their peak memory and steps/s at
+   ``REMAT_BATCHES``; the LSTM with the social GAT, ``use_pallas`` against
+   plain, three steps and a rollout.  The wrappers count Python calls, so a
+   chunk counts its warm-up steps and its capture, and its replays nothing.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -108,8 +122,15 @@ EVAL_ADE_TOL = 1e-2  # meters, route A against plain on the whole scene
 EVAL_NLL_RTOL = 1e-5
 EVAL_INVARIANCE_RTOL = 1e-5
 GRAPH_TOL = 1e-6  # meters: rollout_k replayed from a CUDA graph against eager, one stream
-TRAIN_STEPS, VARIETY_N, FIT_STEPS = 3, 8, 200
+TRAIN_STEPS, VARIETY_N, FIT_STEPS = 3, 8, 100
+CHUNK_M, CHUNK_STEPS = 10, 20  # phase 11: steps a dispatch, steps against eager
+REMAT_BATCHES = (16, 128)
+REMAT_GRAD_RTOL = 1e-5  # a policy's step-1 gradients against "full", of each leaf's largest
 TRAIN_LOSS_RTOL = 1e-5
+# Phase 11's attention encoder after its first update: Adam moves the elements
+# whose gradients are within rounding of 0 by up to lr either way (PARAM_TOL's
+# reason), and its layer norms carry that into the loss (9.8e-6 on an H100).
+ATTN_LATER_LOSS_RTOL = 1e-4
 # Parameters after TRAIN_STEPS steps, use_pallas against plain.  Adam moves an
 # element by about lr * sign(g) while its moments are young, so an element
 # whose gradient is within rounding of 0 may move the other way: every
@@ -592,6 +613,273 @@ def training_phase(torch, dev, card, cfg, counted, zero) -> None:
     log("training " + json.dumps({"card": card, "train_bench": summary}))
 
 
+def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
+    """Phase 11: the rest of single-device training at config 4's full width:
+    chunks of steps replayed from a CUDA graph against per-step eager
+    training, ``fit`` in chunks, ``train_bench`` at M = 1 and M = 10, the
+    attention encoder's training, the remat policies and the LSTM.
+
+    Launch counts: the wrappers count Python calls, so a chunk's warm-up
+    steps and its capture count and its replays do not; ``counted`` adds
+    what they count to the kernels line, and each replay repeats the
+    capture's launches (``multi.capture_launches``)."""
+    from mmtraj_torch import train as tr
+    from mmtraj_torch.benchmarks import train_bench
+    from mmtraj_torch.data.registry import load_scene_windows
+    from mmtraj_torch.data.transforms import NormStats
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.params import init_params
+    from mmtraj_torch.utils.logging import MetricsLogger
+
+    TB, M = cfg.train.batch_size, CHUNK_M
+    lr = cfg.train.lr
+    state = init_params(cfg.model, torch.Generator().manual_seed(0))
+    stats = NormStats(torch.zeros(2, device=dev), torch.ones(2, device=dev))
+    per_step = 2 * (TO + TP)  # fused_gat a step under use_pallas, nll or variety
+    summary = {"card": card}
+
+    def compare(label, losses, ref_losses, params, ref_params, later_rtol=TRAIN_LOSS_RTOL):
+        """Step 1's loss within TRAIN_LOSS_RTOL, later steps' within
+        ``later_rtol``, parameters per PARAM_TOL's rule."""
+        rels = [abs(a - c) / abs(c) for a, c in zip(losses, ref_losses)]
+        check(rels[0] <= TRAIN_LOSS_RTOL and max(rels) <= later_rtol,
+              f"{label}: losses {losses} vs {ref_losses}")
+        rel = max(rels)
+        dp = (params - ref_params).abs()
+        share = (dp > PARAM_TOL).float().mean().item()
+        check(dp.max().item() <= 2 * lr * len(losses) and share <= 0.01,
+              f"{label}: parameters max |d| {dp.max().item()}, share past {PARAM_TOL} {share}")
+        return rel, dp.max().item()
+
+    def flat(model):
+        return torch.cat([p.detach().flatten() for p in model.parameters()])
+
+    # a. CHUNK_STEPS steps in chunks of M replayed from a graph, against
+    # per-step eager steps from the same parameters, batches and draws.
+    xy_all, mask_all = train_bench.fake_batch(4 * TB, N, TO + TP, dev, seed=5)
+    rng = np.random.default_rng(6)
+    idx = np.stack([rng.permutation(4 * TB)[:TB] for _ in range(CHUNK_STEPS)])
+    kw = dict(loss_mode="nll", variety_n=VARIETY_N, augment_rotate=True, augment_flip=True,
+              seed=3)
+    chunk_rows = {}
+    with torch.enable_grad():
+        for loss_mode in ("nll", "variety"):
+            for use_pallas in (False, True):
+                mc = dataclasses.replace(cfg.model, use_pallas=use_pallas)
+                c = cfg.replace(model=mc)
+                want = {**zero, "fused_gat": per_step if use_pallas else 0}
+
+                def models():
+                    m = Forecaster(mc, TO, TP, device=dev, state=state)
+                    return m, Forecaster(mc, TO, TP, device=dev, state=state)
+
+                me, ee = models()
+                step = tr.make_train_step(me, tr.make_optimizer(c, me), stats, ee, 0.99,
+                                          **{**kw, "loss_mode": loss_mode})
+                t0 = time.perf_counter()
+                eager, counts = counted(lambda: [float(step(
+                    xy_all[torch.as_tensor(i, device=dev)], mask_all[torch.as_tensor(i, device=dev)],
+                    s)) for s, i in enumerate(idx)])
+                eager_s = (time.perf_counter() - t0) / CHUNK_STEPS
+                check(counts == {k: CHUNK_STEPS * v for k, v in want.items()},
+                      f"eager {loss_mode}: launches {counts}")
+                mg, eg = models()
+                multi = tr.make_multi_train_step(mg, tr.make_optimizer(c, mg), stats, eg, 0.99,
+                                                 **{**kw, "loss_mode": loss_mode})
+                graphed, chunk_s = [], []
+                for k in range(CHUNK_STEPS // M):
+                    t0 = time.perf_counter()
+                    losses, counts = counted(lambda: multi(xy_all, mask_all, idx[k * M:(k + 1) * M],
+                                                           range(k * M, (k + 1) * M)))
+                    chunk_s.append(time.perf_counter() - t0)
+                    graphed += losses.tolist()
+                    # warm-up and capture on the first chunk, replays only after
+                    n = tr.CAPTURE_WARMUP + 1 if k == 0 else 0
+                    check(counts == {key: n * v for key, v in want.items()},
+                          f"graphed {loss_mode} chunk {k}: launches {counts}, want {n} x {want}")
+                check(multi.capture_launches == want,
+                      f"graphed {loss_mode}: capture launches {multi.capture_launches}, want {want}")
+                label = f"graphed vs eager {loss_mode} {'use_pallas' if use_pallas else 'plain'}"
+                rel, dmax = compare(label, graphed, eager, flat(mg), flat(me))
+                d_ema = (flat(eg) - flat(ee)).abs().max().item()
+                chunk_rows[label] = {"loss_rel": rel, "param_max_abs": dmax, "ema_max_abs": d_ema,
+                                     "eager_ms_a_step": eager_s * 1e3,
+                                     "first_chunk_s": chunk_s[0],
+                                     "graphed_ms_a_step": chunk_s[-1] / M * 1e3}
+                log(f"{label} (B={TB}, N={N}, {CHUNK_STEPS} steps, M={M}, augment, EMA 0.99): "
+                    f"losses within {rel:.2e} relative (tol {TRAIN_LOSS_RTOL}); parameters max "
+                    f"|d| {dmax:.3e}, EMA {d_ema:.3e}; capture launches {multi.capture_launches}; "
+                    f"eager {eager_s * 1e3:.2f} ms a step, first chunk (warm-up, capture, "
+                    f"replays) {chunk_s[0]:.2f} s, then {chunk_s[-1] / M * 1e3:.2f} ms a step")
+    summary["chunks"] = chunk_rows
+
+    # b. fit in chunks of M on the in-repo data, cut at a checkpoint and resumed.
+    fit_cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, use_pallas=True),
+        data=dataclasses.replace(cfg.data, data_dir=str(EVAL_DATA)),
+        train=dataclasses.replace(cfg.train, steps=FIT_STEPS, eval_every=0, log_every=10,
+                                  ckpt_every=FIT_STEPS // 2, ema_decay=0.99, k_samples=K,
+                                  steps_per_dispatch=M))
+    n_test = len(load_scene_windows(str(EVAL_DATA), "univ", TO, TP))
+    want_fit = {**zero, "fused_gat": (tr.CAPTURE_WARMUP + 1) * per_step
+                + math.ceil(n_test / TB) * (TO + 2 * TP)}
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_fit_", dir=Path(__file__).resolve().parent))
+    try:
+        def fit(c, resume=False):
+            return tr.fit(c, logger=MetricsLogger(c.train.out_dir, quiet=True), resume=resume,
+                          device=dev)
+
+        with torch.enable_grad():
+            t0 = time.perf_counter()
+            whole, counts = counted(lambda: fit(fit_cfg.replace(train=dataclasses.replace(
+                fit_cfg.train, out_dir=str(tmp / "a")))))
+            fit_s = time.perf_counter() - t0
+            check(counts == want_fit, f"fit in chunks: launches {counts}, want {want_fit}")
+            cut = fit_cfg.replace(train=dataclasses.replace(fit_cfg.train, steps=FIT_STEPS // 2,
+                                                            out_dir=str(tmp / "b")))
+            fit(cut)
+            resumed = fit(cut.replace(train=dataclasses.replace(cut.train, steps=FIT_STEPS)),
+                          resume=True)
+    finally:
+        shutil.rmtree(tmp)
+    same = all(torch.equal(whole.state[k], resumed.state[k]) for k in whole.state)
+    logged = dict(whole.history)  # the resumed run also logs its first step
+    check(same and whole.eval_metrics == resumed.eval_metrics and
+          all(logged[s] == lv for s, lv in resumed.history if s in logged),
+          "fit in chunks: the resumed run differs from the uninterrupted one")
+    losses = [lv for _, lv in whole.history]
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]), f"fit in chunks: no descent {losses}")
+    m = whole.eval_metrics
+    check(all(math.isfinite(m[k]) for k in ("min_ade", "min_fde", "nll")), f"fit eval: {m}")
+    log(f"fit in chunks of {M} (univ held out, use_pallas, EMA 0.99, B={TB}, {FIT_STEPS} steps, "
+        f"{fit_s:.1f} s with the final eval; {card}): loss {[round(x, 4) for x in losses]}; "
+        f"resumed from step {FIT_STEPS // 2}: bit-identical parameters and metrics; final eval "
+        f"(EMA) min_ade {m['min_ade']:.6f} min_fde {m['min_fde']:.6f} nll {m['nll']:.6f}; "
+        f"launches {counts} (capture, warm-up and eval)")
+    summary["fit_s"] = fit_s
+
+    # c. train_bench per step and in chunks of M, in turns; the graphed step's profile.
+    rows = {}
+    with torch.enable_grad():
+        for loss_mode in ("nll", "variety"):
+            for m_ in (1, M, M, 1):
+                r = train_bench.bench_train_step(TB, min_seconds=1.0, use_pallas=True,
+                                                 loss_mode=loss_mode, variety_n=VARIETY_N,
+                                                 device=dev, flops=False, steps_per_dispatch=m_)
+                rows.setdefault(f"{loss_mode} M={m_}", []).append(r.steps_per_sec)
+                log("train_bench " + train_bench._fmt(r))
+        prof = train_bench.profile_train_step(TB, use_pallas=True, device=dev, steps=M,
+                                              steps_per_dispatch=M)
+    log("train_bench --profile --steps-per-dispatch " + json.dumps(prof))
+    check(prof["device_busy_share"] is None or prof["device_busy_share"] > 0,
+          f"graphed profile: {prof}")
+    summary["train_bench_steps_per_s"] = rows
+    summary["graphed_profile"] = {k: prof[k] for k in (
+        "step_ms", "host_enqueue_ms", "device_kernels_per_step", "device_busy_share")}
+
+    # d. The attention encoder's training: use_pallas against plain, 3 steps.
+    xy, mask = train_bench.fake_batch(TB, N, TO + TP, dev)
+    attn = dataclasses.replace(cfg.model, encoder="attn")
+    attn_state = init_params(attn, torch.Generator().manual_seed(0))
+
+    def steps(model_cfg, st, loss_mode="nll", kernel_calls=None):
+        model = Forecaster(model_cfg, TO, TP, device=dev, state=st)
+        step = tr.make_train_step(model, tr.make_optimizer(cfg.replace(model=model_cfg), model),
+                                  stats, loss_mode=loss_mode, variety_n=VARIETY_N)
+        losses, grads = [], None
+        for s in range(TRAIN_STEPS):
+            loss, counts = counted(lambda: step(xy, mask, s))
+            want = {**zero, "fused_gat": kernel_calls or 0}
+            check(counts == want, f"{model_cfg.encoder}/{model_cfg.cell} step {s}: launches "
+                                  f"{counts}, want {want}")
+            losses.append(float(loss))
+            if s == 0:
+                grads = [p.grad.clone() for p in model.parameters()]
+        return losses, grads, flat(model), model
+
+    with torch.enable_grad():
+        for loss_mode in ("nll", "variety"):
+            lp, _, pp, _ = steps(attn, attn_state, loss_mode)
+            calls = 2 * (attn.attn_layers + TP)
+            lk, _, pk, _ = steps(dataclasses.replace(attn, use_pallas=True), attn_state, loss_mode,
+                                 calls)
+            rel, dmax = compare(f"attn {loss_mode}", lk, lp, pk, pp, ATTN_LATER_LOSS_RTOL)
+            log(f"attn encoder training {loss_mode} (B={TB}, N={N}, {TRAIN_STEPS} steps): "
+                f"use_pallas vs plain losses {lk} vs {lp}, within {rel:.2e} relative; "
+                f"parameters max |d| {dmax:.3e}; "
+                f"fused_gat {calls} launches a step ({attn.attn_layers} layers at "
+                f"{TB * TO} graphs, {TP} decoder steps, each again in the recomputation)")
+
+    # e. The remat policies: gradients against "full", peak memory and rate.
+    policies = {"off": (False, {}), "full": (True, {}), "dots": (True, {"remat_policy": "dots"}),
+                "dots_no_batch": (True, {"remat_policy": "dots_no_batch"})}
+    grads = {}
+    with torch.enable_grad():
+        for name, (remat, extra) in policies.items():
+            mc = dataclasses.replace(cfg.model, use_pallas=True, remat=remat, **extra)
+            _, grads[name], _, _ = steps(mc, state, "nll", per_step if remat else TO + TP)
+        for name in ("off", "dots", "dots_no_batch"):
+            g_rel = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+                        for a, c in zip(grads[name], grads["full"]))
+            check(g_rel <= REMAT_GRAD_RTOL, f"remat {name}: gradients {g_rel} from full's")
+            log(f"remat {name} vs full: step-1 gradients within {g_rel:.2e} of each leaf's "
+                f"largest (tol {REMAT_GRAD_RTOL})")
+        remat_rows = {}
+        for b in REMAT_BATCHES:
+            for name, (remat, extra) in policies.items():
+                r = train_bench.bench_train_step(b, remat=remat, min_seconds=1.0, use_pallas=True,
+                                                 device=dev, flops=False, steps_per_dispatch=M,
+                                                 model_kw=extra)
+                remat_rows[f"B={b} {name}"] = {"steps_per_s": r.steps_per_sec,
+                                               "peak_mib": r.peak_mem_bytes / 2**20}
+                log("train_bench " + train_bench._fmt(r))
+    summary["remat"] = remat_rows
+
+    # f. The LSTM with the social GAT: use_pallas against plain, 3 steps and a rollout.
+    lstm = dataclasses.replace(cfg.model, cell="lstm")
+    lstm_state = init_params(lstm, torch.Generator().manual_seed(0))
+    with torch.enable_grad():
+        lp, _, pp, _ = steps(lstm, lstm_state)
+        lk, _, pk, model = steps(dataclasses.replace(lstm, use_pallas=True), lstm_state, "nll",
+                                 per_step)
+    rel, dmax = compare("lstm nll", lk, lp, pk, pp)
+    plain = Forecaster(lstm, TO, TP, device=dev, state=model.state_dict())
+    roll, counts = counted(lambda: model.rollout_k(xy[:, :, :TO], mask, stats, K,
+                                                   generator=torch.Generator(device=dev).manual_seed(1)))
+    want = {**zero, "fused_gat": TO + TP}
+    check(counts == want, f"lstm rollout_k: launches {counts}, want {want}")
+    ref = plain.rollout_k(xy[:, :, :TO], mask, stats, K,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    check(bool(torch.isfinite(roll).all()) and roll.shape == (K, TB, N, TP, 2),
+          f"lstm rollout_k: shape {tuple(roll.shape)} or not finite")
+    per = torch.where(mask[None, :, :, None, None], (roll - ref).abs(), 0.0).flatten(2).amax(2)
+    n_bad = int((per > ROLLOUT_TOL).sum())
+    check(n_bad <= MAX_DIVERGED * K * TB, f"lstm rollout_k: {n_bad} rollouts past {ROLLOUT_TOL}")
+    log(f"lstm + social GAT (B={TB}, N={N}): {TRAIN_STEPS} nll steps use_pallas vs plain losses "
+        f"within {rel:.2e}, parameters max |d| {dmax:.3e}, fused_gat {per_step} launches a step; "
+        f"rollout_k K={K} vs plain max abs err {per[per <= ROLLOUT_TOL].max().item():.3e} m, "
+        f"{n_bad} of {K * TB} past {ROLLOUT_TOL} m, fused_gat {TO + TP} launches")
+
+    # g. fused_gat's device time at the training shapes: the encoder's B graphs,
+    # and B * obs (the attention encoder) = B * VARIETY_N (the variety rollout).
+    from mmtraj_torch.ops import fused_gat
+
+    rng = np.random.default_rng(7)
+    gw = [state[f"dec.gat.{k}"].to(dev) for k in ("wv", "a_src", "a_dst", "wo", "bo")]
+    gat_ms = {}
+    for b in (TB, TB * TO):
+        h = torch.tensor(rng.normal(size=(b, N, cfg.model.hidden_dim)), dtype=torch.float32,
+                         device=dev)
+        att = torch.tensor(rng.random((b, N, N)) < 0.3, dtype=torch.float32, device=dev)
+        args = (h, att, *gw, cfg.model.num_heads)
+        gat_ms[f"({b}, {N}, {cfg.model.hidden_dim})"] = {
+            "ms": time_ms(torch, lambda: fused_gat.fused_gat(*args)),
+            "plain_ms": time_ms(torch, lambda: fused_gat.gat_math(*args))}
+    log(f"fused_gat device time at the training shapes ({card}): {gat_ms}")
+    summary["fused_gat_ms"] = gat_ms
+    log("graphed training " + json.dumps(summary))
+
+
 def main() -> int:
     import torch
 
@@ -599,6 +887,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from mmtraj_torch.benchmarks.bench import card_line
     from mmtraj_torch.config import config4
     from mmtraj_torch.data.transforms import NormStats
@@ -967,6 +1256,13 @@ def main() -> int:
 
     # -- 10. training --------------------------------------------------------------------
     training_phase(torch, dev, card, cfg, counted, dict.fromkeys(counters, 0))
+
+    log(f"phases 1-10: {time.perf_counter() - t_start:.1f} s")
+
+    # -- 11. graphed training, the attention encoder, remat policies, the LSTM -----------
+    t0 = time.perf_counter()
+    graphed_training_phase(torch, dev, card, cfg, counted, dict.fromkeys(counters, 0))
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

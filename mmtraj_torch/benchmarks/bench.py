@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from mmtraj_torch.benchmarks.rollout_bench import _sync as sync
+from mmtraj_torch.ops import launch_counters
 
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (data sheet)
 MFU_PEAK = "f32-67TF (H100 SXM, outside the tensor cores)"
@@ -81,13 +82,6 @@ def bench_inputs(rng: np.random.Generator, B: int, N: int, obs_len: int, device)
     xy = np.cumsum(steps, axis=2) + rng.normal(size=(B, N, 1, 2)) * 5
     return (torch.tensor(xy, dtype=torch.float32, device=device),
             torch.tensor(rng.random((B, N)) < 0.75, device=device))
-
-
-def launch_counters():
-    from mmtraj_torch.ops import fused_attend, fused_decoder, fused_gat
-
-    return {"attend": fused_attend.attend, "attend_packed": fused_attend.attend_packed,
-            "fused_gat": fused_gat.fused_gat, "fused_decode": fused_decoder.fused_decode}
 
 
 def count_launches(fn, device) -> dict:

@@ -6,6 +6,7 @@ card).
 
 Usage:
   python -m mmtraj_torch.cli train --config 4 --data-dir data/synthetic3000 --out-dir runs/x
+  python -m mmtraj_torch.cli train --config 1 --data-dir ... --steps-per-dispatch 10
   python -m mmtraj_torch.cli eval --ckpt runs/x/checkpoint.npz --data-dir data/synthetic3000
   python -m mmtraj_torch.cli autotune-eval --ckpt runs/x/checkpoint.npz
   python -m mmtraj_torch.cli eval --ckpt ... --data-dir ... --device cpu
@@ -45,7 +46,7 @@ def _add_train(sub) -> None:
                     help="variational dropout rate on embed/GAT activations")
     tp.add_argument("--num-mixtures", type=int, default=None)
     tp.add_argument("--encoder", default=None, choices=("rnn", "attn"),
-                    help="observation encoder family (training 'attn' is not ported)")
+                    help="observation encoder family")
     tp.add_argument("--attn-layers", type=int, default=None)
     tp.add_argument("--social", dest="social", action="store_true", default=None,
                     help="enable the per-frame social GAT (presets 2-5 default on)")
@@ -57,7 +58,8 @@ def _add_train(sub) -> None:
                     help="proximity-graph radius in meters; <=0 means fully connected")
     tp.add_argument("--hidden-dim", type=int, default=None)
     tp.add_argument("--remat-policy", default=None, choices=("full", "dots", "dots_no_batch"),
-                    help="what the backward recomputes ('dots' policies are not ported)")
+                    help="what the backward recomputes: 'full' all, 'dots' all but the "
+                         "matrix products, 'dots_no_batch' all but the unbatched products")
     tp.add_argument("--attend-kernel", default=None, choices=("auto", "xla", "pallas"),
                     help="GAT attention-chain backend: 'pallas' pins the Hopper attend kernel")
     tp.add_argument("--use-pallas", action="store_true",
@@ -79,7 +81,9 @@ def _add_train(sub) -> None:
                     help="resume from {out-dir}/checkpoint.npz if present")
     tp.add_argument("--data-parallel", action="store_true", help="not ported")
     tp.add_argument("--stream", action="store_true", help="not ported")
-    tp.add_argument("--steps-per-dispatch", type=int, default=None, help="not ported above 1")
+    tp.add_argument("--steps-per-dispatch", type=int, default=None,
+                    help="M steps a host dispatch: on the card one step as a CUDA graph, "
+                         "replayed M times (needs resident data, not --stream)")
     tp.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
 
@@ -229,7 +233,7 @@ def main(argv=None) -> int:
     if args.data_parallel:
         raise not_ported("eval --data-parallel", "item 6, scale-out")
     if args.dtype == "bfloat16":
-        raise not_ported("eval --dtype bfloat16", "item 3, LSTM, imported GRU biases and bf16")
+        raise not_ported("eval --dtype bfloat16", "item 3, bf16")
     from mmtraj_torch.evaluate import evaluate
     from mmtraj_torch.models.forecaster import Forecaster
 

@@ -8,7 +8,7 @@ In the port, ``use_pallas=True`` selects the hand-written Hopper GAT kernel
 (``ops/fused_gat.py``), ``attend_kernel="pallas"`` the Hopper attend kernel
 (``ops/fused_attend.py``) and ``use_fused_decoder=True`` the Hopper rollout
 kernel (``ops/fused_decoder.py``).  ``remat``, ``remat_policy`` and
-``dropout`` are read only by training.  Preset 1 (the LSTM) and preset 5's
+``dropout`` are read only by training.  ``dtype="bfloat16"`` and preset 5's
 ``data_parallel`` name parts that are not ported yet; they raise where they
 are used.
 """

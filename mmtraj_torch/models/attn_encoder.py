@@ -29,10 +29,10 @@ from mmtraj_torch.models.layers import (
     glorot,
     layer_norm,
     layer_norm_init,
+    maybe_remat,
     mlp,
     mlp_init,
 )
-from mmtraj_torch.params import not_ported
 
 
 def attn_encoder_init(generator: torch.Generator, cfg) -> Params:
@@ -106,11 +106,16 @@ def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
 
     xy_obs (B, N, To, 2) absolute meters (the per-frame proximity graphs),
     dxy_n (B, N, To, 2) normalized offsets (the content stream), mask (B, N).
-    Training this encoder (``drop`` masks, ``train=True``) is not ported yet."""
-    if train or drop is not None:
-        raise not_ported("encoder='attn' training", "item 2, single-device training")
+    ``drop``: the encoder's variational dropout masks {"emb": (B, N, E),
+    "gat": (B, N, H)}, broadcast over time: "emb" scales the embedding,
+    "gat" the GAT residual.  ``train`` marks a differentiated path, on which
+    "auto" keeps the plain attend chain.  Each layer is checkpointed per
+    ``cfg.remat`` where a graph is recorded."""
     B, N, T, _ = xy_obs.shape
-    x = dense(params["proj"], torch.relu(dense(params["embed"], dxy_n)))  # (B, N, T, H)
+    x = torch.relu(dense(params["embed"], dxy_n))  # (B, N, T, E)
+    if drop is not None:
+        x = x * drop["emb"][:, :, None, :]
+    x = dense(params["proj"], x)  # (B, N, T, H)
     x = x + sinusoidal_positions(T, x.shape[-1], x.device)
 
     if cfg.social:
@@ -119,14 +124,21 @@ def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
         mask_flat = mask[:, None, :].expand(B, T, N).reshape(B * T, N)
         adj_flat = proximity_adjacency(xy_flat, mask_flat, cfg.adjacency_radius)
 
-    for i in range(cfg.attn_layers):
-        lp = params["layers"][f"l{i}"]
+    def layer_apply(lp, x):
         x = x + _temporal_mhsa(lp["attn"], layer_norm(lp["ln1"], x), cfg.num_heads)
         if cfg.social:
             y_flat = layer_norm(lp["ln2"], x).transpose(1, 2).reshape(B * T, N, -1)
             g = gat_apply(lp["gat"], y_flat, adj_flat, mask_flat, cfg.num_heads,
-                          use_pallas=cfg.use_pallas, attend_kernel=cfg.attend_kernel)
-            x = x + g.reshape(B, T, N, -1).transpose(1, 2)
-        x = x + mlp(lp["mlp"], layer_norm(lp["ln3"], x))
+                          use_pallas=cfg.use_pallas, attend_kernel=cfg.attend_kernel,
+                          train=train)
+            g = g.reshape(B, T, N, -1).transpose(1, 2)  # (B, N, T, H)
+            if drop is not None:
+                g = g * drop["gat"][:, :, None, :]
+            x = x + g
+        return x + mlp(lp["mlp"], layer_norm(lp["ln3"], x))
+
+    layer_apply = maybe_remat(cfg, layer_apply)
+    for i in range(cfg.attn_layers):
+        x = layer_apply(params["layers"][f"l{i}"], x)
     feat = layer_norm(params["ln_out"], x[:, :, -1])
     return torch.where(mask[..., None], feat, 0.0)

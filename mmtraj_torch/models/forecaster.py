@@ -6,9 +6,9 @@ JAX ``(in, out)`` orientation: ``state_dict()`` keys are the JAX tree's keys
 joined with ``.``.  The math is the JAX package's, step for step:
 
 * ``encode``, ``encoder="rnn"``: over the observed frames, embed the
-  normalized offset, run the GRU, rebuild the proximity adjacency from that
+  normalized offset, run the cell (GRU or LSTM), rebuild the proximity adjacency from that
   frame's absolute positions and add the GAT residual; then bridge the
-  hidden state with tanh.
+  hidden state (and the LSTM's cell state) with tanh.
 * ``encode``, ``encoder="attn"``: the spatio-temporal attention encoder of
   ``models/attn_encoder.py``; its last-step features are bridged with tanh.
 * ``rollout_k``: tile the K samples into the batch (flat row ``kk*B + b``)
@@ -48,7 +48,7 @@ from mmtraj_torch.models.cells import Carry, cell_apply, init_carry
 from mmtraj_torch.models.gat import gat_apply
 from mmtraj_torch.models.layers import Params, dense, maybe_remat
 from mmtraj_torch.ops import fused_decoder
-from mmtraj_torch.params import State, check_supported, init_params, not_ported, unflatten
+from mmtraj_torch.params import State, check_supported, init_params, unflatten
 
 
 def resolve_device(device) -> torch.device:
@@ -140,9 +140,6 @@ class Forecaster(nn.Module):
             if generator is None:
                 raise TypeError("Forecaster needs state= or a generator= to draw it from")
             state = init_params(cfg, generator)
-        if any(k.endswith((".bh", ".wh_n")) for k in state):
-            raise not_ported("the import-only cell params 'bh'/'wh_n'",
-                             "LSTM, imported GRU biases and bf16")
         # Copied, so that models built from one state never share storage:
         # training updates the parameters in place.
         tree = unflatten({k: torch.as_tensor(v, dtype=torch.float32).to(self.device, copy=True)
@@ -168,10 +165,7 @@ class Forecaster(nn.Module):
         B, N = mask.shape
         dxy_n = normalize(to_relative(xy_obs), stats)
         if cfg.encoder == "attn":
-            if train or drop is not None:
-                raise not_ported("encoder='attn' training", "item 2, single-device training")
-            h = torch.tanh(dense(p["bridge_h"], attn_encode(p["enc"], cfg, xy_obs, dxy_n, mask)))
-            return Carry(h=h, c=torch.zeros_like(h))
+            return self._bridge(p, attn_encode(p["enc"], cfg, xy_obs, dxy_n, mask, drop, train))
 
         def body(carry, dxy_t, xy_t):
             return _step(p["enc"], cfg, carry, dxy_t, xy_t, mask, drop, train=train)
@@ -180,8 +174,18 @@ class Forecaster(nn.Module):
         carry = init_carry((B, N), cfg.hidden_dim, self.device)
         for t in range(xy_obs.shape[2]):
             carry = body(carry, dxy_n[:, :, t], xy_obs[:, :, t])
-        h = torch.tanh(dense(p["bridge_h"], carry.h))
-        return Carry(h=h, c=torch.zeros_like(carry.c))
+        return self._bridge(p, carry.h, carry.c)
+
+    def _bridge(self, p: Params, h, c=None) -> Carry:
+        """The decoder's carry from the encoder's features: tanh of
+        ``bridge_h`` for h; for the LSTM tanh of ``bridge_c`` of the
+        encoder's cell state (the attention encoder bridges its features
+        for both), else zeros."""
+        if self.cfg.cell == "lstm":
+            c = torch.tanh(dense(p["bridge_c"], h if c is None else c))
+        else:
+            c = torch.zeros_like(h)
+        return Carry(h=torch.tanh(dense(p["bridge_h"], h)), c=c)
 
     # -- heads --------------------------------------------------------------
     def _head(self, p: Params, h):

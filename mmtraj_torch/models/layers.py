@@ -2,41 +2,64 @@
 
 Parameters are plain dicts of tensors in the JAX ``(in, out)`` orientation:
 ``dense`` computes ``x @ w + b``.  ``maybe_remat`` checkpoints a time step's
-body for the backward pass, as the JAX package's ``jax.checkpoint`` does.
+body (or an attention layer) for the backward pass under the JAX package's
+three remat policies, as its ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 Params = Dict[str, object]
 
 NEG_INF = -1e9
 
 
+def _saved_products(policy: str):
+    """The matrix products whose outputs a remat policy keeps: "dots" every
+    one (``jax.checkpoint_policies.dots_saveable``), "dots_no_batch" those
+    with no batch dimension, the weight-stationary ``mm``/``addmm``
+    (``dots_with_no_batch_dims_saveable``)."""
+    aten = torch.ops.aten
+    no_batch = [aten.mm.default, aten.addmm.default]
+    if policy == "dots_no_batch":
+        return no_batch
+    if policy == "dots":
+        return no_batch + [aten.bmm.default, aten.baddbmm.default]
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 def maybe_remat(cfg, body: Callable) -> Callable:
     """``body`` recomputed in the backward pass instead of keeping its
     intermediates, per ``cfg.remat``/``cfg.remat_policy`` (the JAX package's
-    ``maybe_remat``, ``mmtraj/models/layers.py:19``): policy "full" saves
-    only the body's inputs (``torch.utils.checkpoint``, non-reentrant).  The
-    body draws no random numbers, so no generator state is kept for the
+    ``maybe_remat``, ``mmtraj/models/layers.py:19``), by
+    ``torch.utils.checkpoint`` (non-reentrant):
+
+    * "full" keeps only the body's inputs and recomputes the rest;
+    * "dots" and "dots_no_batch" keep the outputs of the matrix products of
+      ``_saved_products`` and recompute everything else
+      (``create_selective_checkpoint_contexts``).  The kernels'
+      ``autograd.Function``s are no aten op, so every policy recomputes
+      them, as JAX's policies recompute a ``custom_vjp`` call.
+
+    Policies change what backward recomputes, never the math.  The body
+    draws no random numbers, so no generator state is kept for the
     recomputation.  Where nothing records a graph (inference) the body runs
-    as it is; "dots" and "dots_no_batch" are not ported."""
+    as it is."""
     if not cfg.remat or not torch.is_grad_enabled():
         return body
-    if cfg.remat_policy in ("dots", "dots_no_batch"):
-        from mmtraj_torch.params import not_ported
-
-        raise not_ported(f"remat_policy={cfg.remat_policy!r}", "item 2, single-device training")
+    kw = {}
     if cfg.remat_policy != "full":
-        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _saved_products(cfg.remat_policy))
 
     def remat_body(*args):
-        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return remat_body
 

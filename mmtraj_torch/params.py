@@ -50,10 +50,10 @@ def check_supported(cfg: ModelConfig) -> None:
     ``ValueError`` for one that does not exist."""
     if cfg.encoder not in ("rnn", "attn"):
         raise ValueError(f"unknown encoder {cfg.encoder!r}; choose 'rnn' or 'attn'")
-    if cfg.cell != "gru":
-        raise not_ported(f"cell={cfg.cell!r}", "LSTM, imported GRU biases and bf16")
+    if cfg.cell not in ("gru", "lstm"):
+        raise ValueError(f"unknown cell {cfg.cell!r}; choose 'gru' or 'lstm'")
     if cfg.dtype != "float32":
-        raise not_ported(f"dtype={cfg.dtype!r}", "LSTM, imported GRU biases and bf16")
+        raise not_ported(f"dtype={cfg.dtype!r}", "item 3, bf16")
     if cfg.head not in ("gmm", "deterministic"):
         raise ValueError(f"unknown head {cfg.head!r}")
 
@@ -104,6 +104,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> State:
             for li in range(cfg.gat_layers):
                 coder["gat" if li == 0 else f"gat_{li}"] = gat_init(g, H, H, cfg.num_heads)
     tree = {"enc": enc, "dec": dec, "bridge_h": dense_init(g, H, H)}
+    if cfg.cell == "lstm":
+        tree["bridge_c"] = dense_init(g, H, H)
     if cfg.head == "gmm":
         tree["head"] = gmm.head_init(g, H, cfg.num_mixtures)
     else:

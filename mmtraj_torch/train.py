@@ -7,24 +7,32 @@ clipping by the global norm and AdamW with the learning-rate schedule,
 written out here to optax's arithmetic, and an optional EMA of the
 parameters.  PyTorch runs it eagerly: the forward and backward go through
 the model's ops and, under ``use_pallas``/``attend_kernel="pallas"``, the
-Hopper kernels, whose backward is autograd of their plain math.
+Hopper kernels, whose backward is autograd of their plain math.  The
+optimizer's counts, bias corrections and learning rate live on the device,
+so a step never waits for it.
+
+``make_multi_train_step`` runs a chunk of M steps (``steps_per_dispatch``,
+the JAX package's scan of steps in one program): on CUDA a CUDA graph of one
+step, replayed M times, so the host pays its per-op dispatch once at
+capture; on the CPU the same steps eagerly.
 
 ``fit`` trains from a data directory with the window set resident on the
-device, logs JSONL, checkpoints with the optimizer state (npz, the JAX
-package's layout) and evaluates through the port's ``evaluate``.  A resumed
-run replays the uninterrupted run's data order and draws, so it reaches the
-same parameters.  Not ported: ``steps_per_dispatch > 1`` (ROADMAP.md queue 1
-item 2), streaming ingest and data parallelism (item 6).
+device, in chunks where ``steps_per_dispatch > 1``, logs JSONL, checkpoints
+with the optimizer state (npz, the JAX package's layout) and evaluates
+through the port's ``evaluate``.  A resumed run replays the uninterrupted
+run's data order, draws and chunks, so it reaches the same parameters.  Not
+ported: streaming ingest and data parallelism (ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import math
 import os
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,11 +44,12 @@ from mmtraj_torch.data.registry import load_split
 from mmtraj_torch.data.transforms import NormStats, augment_windows, compute_norm_stats
 from mmtraj_torch.evaluate import _device_stats, evaluate
 from mmtraj_torch.models.forecaster import Forecaster, dropout_masks
+from mmtraj_torch.ops import _build, launch_counters
 from mmtraj_torch.params import State, load_npz, not_ported, save_npz
 from mmtraj_torch.utils.logging import MetricsLogger
 
-ITEM2 = "item 2, single-device training"
 ITEM6 = "item 6, scale-out"
+CAPTURE_WARMUP = 2  # eager steps on a side stream before a step's capture
 
 
 @dataclasses.dataclass
@@ -54,19 +63,24 @@ class TrainResult:
 
 # -- the optimizer ------------------------------------------------------------
 
+INT32_MAX = 2**31 - 1
+
+
 def jax_order(names) -> List[str]:
     """Parameter names in the order ``jax.tree.leaves`` visits the JAX tree:
     dict keys sorted at every level."""
     return sorted(names, key=lambda k: k.split("."))
 
 
-def lr_schedule(cfg: Config) -> Callable[[int], float]:
-    """The learning rate at optax's update count (0 for the first update):
+def lr_schedule(cfg: Config) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The learning rate at optax's update count (0 for the first update), a
+    float32 0-d tensor on the count's device (an int counts on the CPU):
     constant, or ``warmup_cosine_decay_schedule`` as ``mmtraj/train.py:43``
-    builds it (linear from 0 over the warm-up, then cosine to lr/100)."""
+    builds it, in optax's float32 arithmetic: ``join_schedules`` of a linear
+    schedule from 0 to lr over the warm-up and a cosine decay to lr/100."""
     t = cfg.train
     if t.lr_schedule == "constant":
-        return lambda count: t.lr
+        return lambda count: torch.full((), t.lr, device=torch.as_tensor(count).device)
     if t.lr_schedule != "cosine":
         raise ValueError(f"unknown lr_schedule {t.lr_schedule!r}")
     warmup = min(t.warmup_steps, max(t.steps, 1))
@@ -76,28 +90,42 @@ def lr_schedule(cfg: Config) -> Callable[[int], float]:
                          f"steps={t.steps}, warmup_steps={t.warmup_steps}")
     alpha = (t.lr / 100.0) / t.lr if t.lr else 0.0
 
-    def schedule(count: int) -> float:
-        if count < warmup:
-            return t.lr * (count / warmup)
-        c = min(count - warmup, decay)
-        return t.lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay)) + alpha)
+    def schedule(count) -> torch.Tensor:
+        count = torch.as_tensor(count, dtype=torch.int32)
+        if warmup > 0:  # optax's linear schedule; one of 0 steps is constant 0
+            frac = 1 - count.clamp(0, warmup) / warmup
+            warm = (0.0 - t.lr) * frac + t.lr
+        else:
+            warm = torch.zeros((), device=count.device)
+        c = (count - warmup).to(torch.float32).clamp_max(float(decay))
+        cosine = 0.5 * (1 + torch.cos(math.pi * c / decay))
+        return torch.where(count < warmup, warm, t.lr * ((1 - alpha) * cosine + alpha))
 
     return schedule
+
+
+def _increment(count: torch.Tensor) -> None:
+    """optax's ``safe_increment`` of an int32 count, in place: saturates."""
+    count.copy_(torch.where(count < INT32_MAX, count + 1, count))
 
 
 class Optimizer:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(lr, weight_decay))``
     of ``mmtraj/train.py:make_optimizer``, by hand, in float32 on the
-    parameters' device, updating them in place:
+    parameters' device, updating them and its state in place (a captured
+    step reads and writes the same tensors at every replay):
 
     * the clip scales every gradient by max_norm / global norm, computed as
       (g / norm) * max_norm with no epsilon, only where the norm is not below
       max_norm (torch's ``clip_grad_norm_`` adds 1e-6 to the norm);
-    * Adam with b1 0.9, b2 0.999, eps 1e-8, eps_root 0 and bias correction;
-      decoupled weight decay ``cfg.train.weight_decay`` (torch's AdamW
-      defaults to 1e-2);
-    * the step is -lr(count) times that, at optax's count, 0 first.
+    * Adam with b1 0.9, b2 0.999, eps 1e-8, eps_root 0 and bias correction at
+      the int32 count (saturating); decoupled weight decay
+      ``cfg.train.weight_decay`` (torch's AdamW defaults to 1e-2);
+    * the step is -lr(count) times that, the schedule read at its count
+      before the update, 0 first.
 
+    The counts are int32 tensors and the bias corrections and the learning
+    rate are computed on the device, so a step reads nothing back from it.
     ``state_leaves`` lays the state out as ``jax.tree.leaves`` of optax's
     state: the Adam count, every first moment, every second moment (both in
     ``jax_order``), and the schedule's count under "cosine"."""
@@ -113,8 +141,13 @@ class Optimizer:
         self.weight_decay = float(cfg.train.weight_decay)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0  # Adam's count (int32 in optax)
-        self.schedule_count = 0
+        dev = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)  # Adam's
+        self.schedule_count = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def state(self) -> List[torch.Tensor]:
+        """Every tensor the update writes besides the parameters."""
+        return [self.count, self.schedule_count, *self.mu, *self.nu]
 
     @torch.no_grad()
     def step(self, grads=None) -> None:
@@ -123,32 +156,45 @@ class Optimizer:
         if grads is None:
             grads = [p.grad for p in self.params]
         if self.clip > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            g_norm = torch.sqrt(sum(torch.sum(gg) for gg in torch._foreach_mul(grads, grads)))
             keep = g_norm < self.clip
-            grads = [torch.where(keep, g, (g / g_norm) * self.clip) for g in grads]
-        self.count = min(self.count + 1, 2**31 - 1)
-        bc1 = float(1 - np.float32(self.B1) ** np.float32(self.count))
-        bc2 = float(1 - np.float32(self.B2) ** np.float32(self.count))
-        step_size = -float(np.float32(self.schedule(self.schedule_count)))
+            scaled = torch._foreach_div(grads, g_norm)
+            torch._foreach_mul_(scaled, self.clip)
+            grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
+        step_size = -self.schedule(self.schedule_count)
+        _increment(self.count)
         if self.cosine:
-            self.schedule_count = min(self.schedule_count + 1, 2**31 - 1)
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            self.mu[i] = (1 - self.B1) * g + self.B1 * self.mu[i]
-            self.nu[i] = (1 - self.B2) * (g * g) + self.B2 * self.nu[i]
-            u = (self.mu[i] / bc1) / (torch.sqrt(self.nu[i] / bc2) + self.EPS)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_(step_size * u)
+            _increment(self.schedule_count)
+        n = self.count.to(torch.float32)
+        bc1, bc2 = 1 - torch.pow(self.B1, n), 1 - torch.pow(self.B2, n)
+        # mu = (1 - b1) g + b1 mu and nu = (1 - b2) g^2 + b2 nu, as optax rounds them.
+        torch._foreach_mul_(self.mu, self.B1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.B1))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1 - self.B2)
+        torch._foreach_mul_(self.nu, self.B2)
+        torch._foreach_add_(self.nu, sq)
+        den = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.EPS)
+        u = torch._foreach_div(self.mu, bc1)
+        torch._foreach_div_(u, den)
+        if self.weight_decay:
+            torch._foreach_add_(u, torch._foreach_mul(self.params, self.weight_decay))
+        torch._foreach_mul_(u, step_size)
+        torch._foreach_add_(self.params, u)
 
     def state_leaves(self) -> List[np.ndarray]:
-        leaves = [np.asarray(self.count, np.int32)]
+        leaves = [self.count.cpu().numpy()]
         leaves += [m.detach().cpu().numpy() for m in self.mu]
         leaves += [v.detach().cpu().numpy() for v in self.nu]
         if self.cosine:
-            leaves.append(np.asarray(self.schedule_count, np.int32))
+            leaves.append(self.schedule_count.cpu().numpy())
         return leaves
 
+    @torch.no_grad()
     def load_state_leaves(self, leaves) -> None:
+        """Copy a checkpoint's leaves into the state, in place."""
         n = len(self.params)
         want = 1 + 2 * n + int(self.cosine)
         if len(leaves) != want:
@@ -159,13 +205,10 @@ class Optimizer:
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"optimizer leaf of shape {a.shape} for a parameter of "
                                  f"shape {tuple(p.shape)}")
-        dev = self.params[0].device
-        self.count = int(leaves[0])
-        self.mu = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
-                   for a in leaves[1:1 + n]]
-        self.nu = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
-                   for a in leaves[1 + n:1 + 2 * n]]
-        self.schedule_count = int(leaves[-1]) if self.cosine else 0
+        self.count.fill_(int(leaves[0]))
+        for t, a in zip(self.mu + self.nu, leaves[1:1 + 2 * n]):
+            t.copy_(torch.as_tensor(np.asarray(a, np.float32)))
+        self.schedule_count.fill_(int(leaves[-1]) if self.cosine else 0)
 
 
 def make_optimizer(cfg: Config, model: Forecaster) -> Optimizer:
@@ -182,6 +225,10 @@ class StepDraws(NamedTuple):
     drop: Optional[tuple] = None  # (encoder masks, decoder masks), dropout_masks
     stream: Optional[tuple] = None  # (gumbel, normal) for variety_n * B rollouts
 
+    def tensors(self) -> List[torch.Tensor]:
+        masks = [m[k] for m in (self.drop or ()) for k in ("emb", "gat")]
+        return [t for t in (self.theta, self.det, *masks, *(self.stream or ())) if t is not None]
+
 
 def step_draws(model: Forecaster, seed: int, step: int, B: int, N: int, rotate: bool,
                flip: bool, variety_n: int) -> StepDraws:
@@ -192,7 +239,8 @@ def step_draws(model: Forecaster, seed: int, step: int, B: int, N: int, rotate: 
     and the variety rollouts' stream where ``variety_n > 0``.  It parallels
     the JAX package's ``fold_in(PRNGKey(seed ^ 0x5EED), step)`` split into
     (augment, dropout, variety) keys; the numbers differ.  The step draws
-    through this function alone, which the tests replace with JAX's draws."""
+    through this function alone, which the tests replace with JAX's draws;
+    a chunk of steps calls it before each step's replay."""
     dev = model.device
     words = np.random.SeedSequence(((seed ^ 0x5EED) % 2**64, int(step))).generate_state(
         3, np.uint64)
@@ -231,6 +279,47 @@ def objective(model: Forecaster, xy, mask, stats: NormStats, draws: StepDraws,
     return lv
 
 
+def _build_core(model: Forecaster, optimizer: Optimizer, stats: NormStats,
+                ema: Optional[Forecaster], ema_decay: float, augment_rotate: bool,
+                augment_flip: bool, seed: int, loss_mode: str, variety_n: int,
+                variety_weight: float, variety_fde_weight: float):
+    """The one-step core that ``make_train_step`` and ``make_multi_train_step``
+    share -> (core, draw, state): ``core(xy, mask, draws)`` trains ``model``
+    in place on one batch and returns the detached loss; ``draw(step, B,
+    N)`` is the step's ``step_draws``; ``state`` every tensor a step
+    updates (parameters, optimizer state, EMA)."""
+    if loss_mode not in ("nll", "variety", "hybrid"):
+        raise ValueError(f"unknown loss mode {loss_mode!r}")
+    if loss_mode != "nll" and model.cfg.use_fused_decoder:
+        raise ValueError("loss=variety/hybrid differentiates the rollout, which "
+                         "use_fused_decoder=True cannot serve; train with the plain decoder")
+    stats = _device_stats(stats, model.device)
+    n_var = variety_n if loss_mode != "nll" else 0
+    params = list(model.parameters())
+    ema_params = list(ema.parameters()) if ema is not None and ema_decay > 0 else []
+    d = float(ema_decay)
+
+    def draw(step_idx: int, B: int, N: int) -> StepDraws:
+        return step_draws(model, seed, step_idx, B, N, augment_rotate, augment_flip, n_var)
+
+    def core(xy, mask, draws: StepDraws) -> torch.Tensor:
+        if draws.theta is not None:
+            xy = augment_windows(xy, mask, draws.theta, draws.det)
+        for p in params:
+            p.grad = None
+        loss = objective(model, xy, mask, stats, draws, loss_mode, variety_n, variety_weight,
+                         variety_fde_weight)
+        loss.backward()
+        optimizer.step()
+        if ema_params:  # d * ema + (1 - d) * params, as the JAX package rounds it
+            with torch.no_grad():
+                torch._foreach_mul_(ema_params, d)
+                torch._foreach_add_(ema_params, torch._foreach_mul(params, 1.0 - d))
+        return loss.detach()
+
+    return core, draw, params + optimizer.state() + ema_params
+
+
 def make_train_step(model: Forecaster, optimizer: Optimizer, stats: NormStats,
                     ema: Forecaster = None, ema_decay: float = 0.0,
                     augment_rotate: bool = False, augment_flip: bool = False, seed: int = 0,
@@ -243,49 +332,154 @@ def make_train_step(model: Forecaster, optimizer: Optimizer, stats: NormStats,
     and ``ema_decay > 0`` it also moves ``ema``'s parameters to d * ema +
     (1 - d) * params after the update.  Each parameter's ``.grad`` holds the
     step's gradient afterwards."""
-    if loss_mode not in ("nll", "variety", "hybrid"):
-        raise ValueError(f"unknown loss mode {loss_mode!r}")
-    if model.cfg.encoder == "attn":
-        raise not_ported("encoder='attn' training", ITEM2)
-    if loss_mode != "nll" and model.cfg.use_fused_decoder:
-        raise ValueError("loss=variety/hybrid differentiates the rollout, which "
-                         "use_fused_decoder=True cannot serve; train with the plain decoder")
-    stats = _device_stats(stats, model.device)
-    n_var = variety_n if loss_mode != "nll" else 0
-    params = list(model.parameters())
-    pairs = list(zip(ema.parameters(), params)) if ema is not None and ema_decay > 0 else []
-    d = float(ema_decay)
+    core, draw, _ = _build_core(model, optimizer, stats, ema, ema_decay, augment_rotate,
+                                augment_flip, seed, loss_mode, variety_n, variety_weight,
+                                variety_fde_weight)
 
     def step(xy, mask, step_idx: int = 0) -> torch.Tensor:
-        B, N = mask.shape
-        draws = step_draws(model, seed, step_idx, B, N, augment_rotate, augment_flip, n_var)
-        if draws.theta is not None:
-            xy = augment_windows(xy, mask, draws.theta, draws.det)
-        for p in params:
-            p.grad = None
-        loss = objective(model, xy, mask, stats, draws, loss_mode, variety_n, variety_weight,
-                         variety_fde_weight)
-        loss.backward()
-        optimizer.step()
-        with torch.no_grad():
-            for e, p in pairs:
-                e.copy_(d * e + (1.0 - d) * p)
-        return loss.detach()
+        return core(xy, mask, draw(step_idx, *mask.shape))
 
     return step
+
+
+class _GraphedStep:
+    """One training step captured as a CUDA graph over static slots: the
+    batch's window indices, the step's draws, and the loss it writes.  The
+    parameters, the optimizer state, the EMA and the gradients are the
+    graph's own tensors, updated in place at every replay."""
+
+    def __init__(self, core, draw, state, params, xy_all, mask_all, B: int, first_step: int):
+        dev = xy_all.device
+        self.key = (xy_all.data_ptr(), mask_all.data_ptr(), tuple(xy_all.shape), B)
+        self.idx = torch.zeros(B, dtype=torch.int64, device=dev)
+        self.draws = draw(first_step, B, mask_all.shape[1])  # fresh tensors: the slots
+
+        def run():
+            xy = xy_all.index_select(0, self.idx)
+            mask = mask_all.index_select(0, self.idx)
+            return core(xy, mask, self.draws)
+
+        _build.build()  # every kernel built (and loaded) before capture
+        counters = launch_counters()
+        with torch.no_grad():
+            snapshot = [t.detach().clone() for t in state]
+        # Warm-up on a side stream, as capture requires; it trains, so the
+        # state is restored after capture (which itself runs nothing).
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for p in params:
+            p.grad = None
+        before = {k: c.launches for k, c in counters.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        # An unreachable graph that the collector destroys during the capture
+        # ends it (cudaGraphExecDestroy is not allowed then): collect first,
+        # and not again until the capture is over.
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.loss = run()
+        finally:
+            if collecting:
+                gc.enable()
+        self.launches = {k: c.launches - before[k] for k, c in counters.items()}
+        with torch.no_grad():
+            for t, s in zip(state, snapshot):
+                t.copy_(s)
+        self.params = params
+        self.grads = [p.grad for p in params]
+
+    def replay(self, idx: torch.Tensor, draws: StepDraws) -> torch.Tensor:
+        self.idx.copy_(idx)
+        for slot, t in zip(self.draws.tensors(), draws.tensors()):
+            slot.copy_(t)
+        self.graph.replay()
+        return self.loss
+
+
+def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormStats,
+                          ema: Forecaster = None, ema_decay: float = 0.0,
+                          augment_rotate: bool = False, augment_flip: bool = False,
+                          seed: int = 0, loss_mode: str = "nll", variety_n: int = 8,
+                          variety_weight: float = 1.0, variety_fde_weight: float = 0.0):
+    """M training steps per host dispatch (``TrainConfig.steps_per_dispatch``;
+    ``mmtraj/train.py:155-231``) -> ``multi(xy_all, mask_all, idx_chunk,
+    step_ids)``: the window set on the device (``DeviceDataset.xy``/``.mask``),
+    an index chunk (M, B) and the M step ids, -> the (M,) losses, a device
+    tensor (reading it waits for the device).
+
+    Step k gathers rows ``idx_chunk[k]`` of the window set and runs the same
+    one-step core as ``make_train_step`` with ``step_draws`` of
+    ``step_ids[k]``: the same batches, draws, optimizer and EMA math as M
+    single steps.  On the CPU the steps run eagerly.  On CUDA the first call
+    captures one step as a CUDA graph (after ``CAPTURE_WARMUP`` steps on a
+    side stream; the state they trained is restored, so the chunk follows the
+    per-step run from its first step), and every step is a replay: the index
+    chunk goes to the device once per chunk from pinned memory; before each
+    replay, step k's indices and its draws (made by ``step_draws`` on the
+    device) are copied into the graph's slots.  Nothing in a chunk waits for
+    the device.  A capture that fails raises; nothing falls back to eager.
+
+    The gradients come from the graph's memory pool; after a chunk each
+    parameter's ``.grad`` holds its last step's gradient.
+
+    Launch counts: the kernel wrappers count Python calls, so the warm-up
+    steps and the capture count once each and replays count nothing; every
+    replay launches what ``multi.capture_launches`` holds (the counts of the
+    capture; empty before the first capture)."""
+    core, draw, state = _build_core(model, optimizer, stats, ema, ema_decay, augment_rotate,
+                                    augment_flip, seed, loss_mode, variety_n, variety_weight,
+                                    variety_fde_weight)
+    params = list(model.parameters())
+    graphed: List[_GraphedStep] = []
+    capture_launches: Dict[str, int] = {}
+
+    def multi(xy_all, mask_all, idx_chunk, step_ids: Sequence[int]) -> torch.Tensor:
+        idx_chunk = np.asarray(idx_chunk, np.int64)
+        step_ids = [int(s) for s in step_ids]
+        M, B = idx_chunk.shape
+        if len(step_ids) != M:
+            raise ValueError(f"{len(step_ids)} step ids for an index chunk of {M} steps")
+        N = mask_all.shape[1]
+        if model.device.type != "cuda":
+            losses = []
+            for idx, s in zip(torch.from_numpy(idx_chunk), step_ids):
+                losses.append(core(xy_all[idx], mask_all[idx], draw(s, B, N)))
+            return torch.stack(losses)
+        key = (xy_all.data_ptr(), mask_all.data_ptr(), tuple(xy_all.shape), B)
+        if not graphed or graphed[0].key != key:
+            graphed[:] = [_GraphedStep(core, draw, state, params, xy_all, mask_all, B,
+                                       step_ids[0])]
+            capture_launches.clear()
+            capture_launches.update(graphed[0].launches)
+        g = graphed[0]
+        idx_dev = torch.from_numpy(idx_chunk).pin_memory().to(model.device, non_blocking=True)
+        losses = torch.empty(M, device=model.device)
+        for k, s in enumerate(step_ids):
+            losses[k].copy_(g.replay(idx_dev[k], draw(s, B, N)))
+        for p, grad in zip(params, g.grads):
+            p.grad = grad
+        return losses
+
+    multi.capture_launches = capture_launches
+    return multi
 
 
 # -- the loop -------------------------------------------------------------------
 
 def _check_supported(cfg: Config) -> None:
-    if cfg.train.steps_per_dispatch > 1:
-        raise not_ported("train steps_per_dispatch > 1 (a CUDA graph of a chunk of steps)", ITEM2)
+    if cfg.train.stream and cfg.train.steps_per_dispatch > 1:
+        raise ValueError("steps_per_dispatch > 1 requires resident ingest (stream=False): a "
+                         "chunk gathers its batches on the device from the resident window set")
     if cfg.train.stream:
         raise not_ported("train --stream (a pinned, double-buffered prefetch)", ITEM6)
     if cfg.train.data_parallel:
         raise not_ported("train --data-parallel", ITEM6)
-    if cfg.model.encoder == "attn":
-        raise not_ported("encoder='attn' training", ITEM2)
 
 
 def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLogger] = None,
@@ -293,6 +487,10 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
     """Train per the config (the entry point behind ``cli train``), the JAX
     package's ``fit`` in resident mode.
 
+    With ``steps_per_dispatch`` M > 1, full chunks of M steps run through
+    ``make_multi_train_step`` (a CUDA graph on the card) and a ragged tail
+    up to the next checkpoint, eval or last step runs step by step, as the
+    JAX package's ``fit`` does; a logged chunk fetches its loss vector once.
     With ``resume=True`` and an existing ``{out_dir}/checkpoint.npz`` it
     restores the parameters, the optimizer state, the stats and the step
     (and the EMA from ``checkpoint_ema.npz``) and goes on: the data order is
@@ -332,12 +530,13 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
     if ema_decay > 0:
         ema = Forecaster(cfg.model, obs_len, pred_len, device=model.device,
                          state=ema_state if ema_state is not None else model.state_dict())
-    step_fn = make_train_step(
-        model, optimizer, stats, ema, ema_decay,
-        augment_rotate=cfg.train.augment_rotate, augment_flip=cfg.train.augment_flip,
-        seed=cfg.train.seed, loss_mode=cfg.train.loss, variety_n=cfg.train.variety_n,
-        variety_weight=cfg.train.variety_weight,
-        variety_fde_weight=cfg.train.variety_fde_weight)
+    step_kw = dict(augment_rotate=cfg.train.augment_rotate, augment_flip=cfg.train.augment_flip,
+                   seed=cfg.train.seed, loss_mode=cfg.train.loss, variety_n=cfg.train.variety_n,
+                   variety_weight=cfg.train.variety_weight,
+                   variety_fde_weight=cfg.train.variety_fde_weight)
+    step_fn = make_train_step(model, optimizer, stats, ema, ema_decay, **step_kw)
+    multi_fn = (make_multi_train_step(model, optimizer, stats, ema, ema_decay, **step_kw)
+                if cfg.train.steps_per_dispatch > 1 else None)
 
     logger = logger or MetricsLogger(cfg.train.out_dir)
     logger.log(
@@ -352,18 +551,10 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
         setup_s=round(time.time() - t_setup, 2),
     )
 
-    batches_per_epoch = max(1, math.ceil(train_ds.n_windows / cfg.train.batch_size))
-
-    def epoch_batches(epoch: int, skip: int = 0):
-        rng = np.random.default_rng([cfg.train.seed, epoch])
-        idxs = device_ds.epoch_indices(cfg.train.batch_size, rng)
-        return (device_ds.batch(idx) for idx in itertools.islice(idxs, skip, None))
-
     history = []
     eval_metrics: Dict[str, float] = {}
     last_eval_step = -1
     step = start_step
-    epoch, skip = divmod(start_step, batches_per_epoch)
     t_train = time.time()
 
     def _log(s: int, lv: float):
@@ -386,21 +577,57 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
                                 seed=cfg.train.seed)
         logger.log(s, **{f"eval_{k}": v for k, v in eval_metrics.items()})
 
+    def _maybe_ckpt_and_eval(s: int):
+        if ckpt_path and cfg.train.ckpt_every > 0 and s % cfg.train.ckpt_every == 0:
+            _save(s)
+        if test_ds is not None and cfg.train.eval_every > 0 and s % cfg.train.eval_every == 0:
+            _eval(s)
+
+    # The data order is a function of (seed, epoch): a resumed run rebuilds
+    # its epoch's permutation and skips the batches already consumed.
+    batches_per_epoch = max(1, math.ceil(train_ds.n_windows / cfg.train.batch_size))
+
+    def index_stream():
+        e, sk = divmod(start_step, batches_per_epoch)
+        while True:
+            rng = np.random.default_rng([cfg.train.seed, e])
+            yield from itertools.islice(device_ds.epoch_indices(cfg.train.batch_size, rng),
+                                        sk, None)
+            e, sk = e + 1, 0
+
+    def next_boundary(s: int) -> int:
+        """The next step that checkpoints, evaluates or ends the run."""
+        b = cfg.train.steps
+        if ckpt_path and cfg.train.ckpt_every > 0:
+            b = min(b, (s // cfg.train.ckpt_every + 1) * cfg.train.ckpt_every)
+        if test_ds is not None and cfg.train.eval_every > 0:
+            b = min(b, (s // cfg.train.eval_every + 1) * cfg.train.eval_every)
+        return b
+
+    # Full chunks of steps_per_dispatch steps run through multi_fn; a ragged
+    # tail up to the next boundary runs step by step, as in the JAX package.
+    spd = cfg.train.steps_per_dispatch
+    idx_iter = index_stream()
     while step < cfg.train.steps:
-        for xy, mask in epoch_batches(epoch, skip):
-            loss = step_fn(xy, mask, step)
-            step += 1
-            if step % cfg.train.log_every == 0 or step == start_step + 1:
-                _log(step, float(loss))
-            if ckpt_path and cfg.train.ckpt_every > 0 and step % cfg.train.ckpt_every == 0:
-                _save(step)
-            if (test_ds is not None and cfg.train.eval_every > 0
-                    and step % cfg.train.eval_every == 0):
-                _eval(step)
-            if step >= cfg.train.steps:
-                break
-        epoch += 1
-        skip = 0
+        m = min(spd, next_boundary(step) - step)
+        if m == spd > 1:
+            idx_chunk = np.stack([next(idx_iter) for _ in range(m)])
+            losses = multi_fn(device_ds.xy, device_ds.mask, idx_chunk, range(step, step + m))
+            to_log = [t for t in range(step + 1, step + m + 1)
+                      if t % cfg.train.log_every == 0 or t == start_step + 1]
+            if to_log:  # one fetch from the device a logged chunk
+                lv = losses.cpu().numpy()
+                for t in to_log:
+                    _log(t, float(lv[t - step - 1]))
+            step += m
+        else:
+            for _ in range(m):
+                xy, mask = device_ds.batch(next(idx_iter))
+                loss = step_fn(xy, mask, step)
+                step += 1
+                if step % cfg.train.log_every == 0 or step == start_step + 1:
+                    _log(step, float(loss))
+        _maybe_ckpt_and_eval(step)
 
     # The final eval is at the last step's parameters, not a periodic one.
     if test_ds is not None and last_eval_step != step:

@@ -213,14 +213,6 @@ def test_attn_encode_ignores_padded_agents():
     torch.testing.assert_close(a[torch.from_numpy(mask)], b[torch.from_numpy(mask)], **LEAF)
 
 
-def test_attn_encode_training_is_not_ported():
-    cfg = ModelConfig(**SMALL)
-    enc = attn_encoder.attn_encoder_init(torch.Generator().manual_seed(0), cfg)
-    xy_obs, _, mask = _windows()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attn_encoder.attn_encode(enc, cfg, *_t(xy_obs, _dxy_n(xy_obs), mask), train=True)
-
-
 ROUTES = {
     "plain": dict(),
     "A": dict(use_pallas=True, use_fused_decoder=True),

@@ -14,28 +14,12 @@ import pytest
 import torch
 
 from mmtraj_torch import cli, config, train
-from mmtraj_torch.config import SCENES
 from mmtraj_torch.data.transforms import NormStats
 from mmtraj_torch.models.forecaster import Forecaster
 from mmtraj_torch.params import load_npz
-from torch_jax_streams import SMALL, TO, TP
+from torch_jax_streams import SMALL, TO, TP, write_scenes
 
 torch.set_num_threads(2)
-
-
-def _write_scenes(root, frames=16):
-    """One annotation file a scene: 3-6 pedestrians walking through every
-    frame (ids every 10 frames, 0.4 s), in the ETH/UCY row format."""
-    rng = np.random.default_rng(0)
-    for s, scene in enumerate(SCENES):
-        rows = []
-        start = rng.uniform(0, 8, size=(3 + s % 4, 2))
-        vel = rng.normal(scale=0.3, size=start.shape)
-        for f in range(frames):
-            for p, (x, y) in enumerate(start + vel * f + rng.normal(scale=0.05, size=start.shape)):
-                rows.append(f"{10 * f}\t{p + 1}\t{x:.4f}\t{y:.4f}")
-        (root / f"{scene}.txt").write_text("\n".join(rows) + "\n")
-    return str(root)
 
 
 def _cfg(data_dir, out_dir, **train_kw):
@@ -50,7 +34,7 @@ def _cfg(data_dir, out_dir, **train_kw):
 
 @pytest.fixture(scope="module")
 def data_dir(tmp_path_factory):
-    return _write_scenes(tmp_path_factory.mktemp("scenes"))
+    return write_scenes(tmp_path_factory.mktemp("scenes"))
 
 
 def test_resumed_fit_is_bit_identical_to_an_uninterrupted_one(data_dir, tmp_path):
@@ -84,22 +68,12 @@ def test_resumed_fit_is_bit_identical_to_an_uninterrupted_one(data_dir, tmp_path
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(steps_per_dispatch=4), "item 2"),
     (dict(stream=True), "item 6"),
     (dict(data_parallel=True), "item 6"),
 ])
 def test_fit_options_not_ported_raise(data_dir, tmp_path, change, match):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1: {match}"):
         train.fit(_cfg(data_dir, str(tmp_path), steps=1, **change), device="cpu")
-
-
-def test_attn_encoder_training_is_not_ported():
-    mc = config.ModelConfig(**SMALL, encoder="attn")
-    model = Forecaster(mc, TO, TP, device="cpu", generator=torch.Generator().manual_seed(0))
-    cfg = config.config4().replace(model=mc)
-    with pytest.raises(NotImplementedError, match="encoder='attn' training"):
-        train.make_train_step(model, train.make_optimizer(cfg, model),
-                              NormStats(np.zeros(2, np.float32), np.ones(2, np.float32)))
 
 
 def _loop(mc, xy, mask, steps, loss_mode="nll"):

@@ -136,9 +136,7 @@ def test_attend_dispatch_rule():
         use_attend_kernel("fast", False, 64, False, on_cuda=False)
 
 
-@pytest.mark.parametrize("change", [
-    dict(cell="lstm"), dict(dtype="bfloat16"),
-])
+@pytest.mark.parametrize("change", [dict(dtype="bfloat16")])
 def test_unsupported_config_raises(change):
     cfg = dataclasses.replace(ModelConfig(hidden_dim=16, embed_dim=16, num_heads=2), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -152,9 +150,9 @@ def test_unknown_encoder_raises_value_error():
 
 
 def test_training_flags_and_imported_params_raise():
-    """Training runs on the plain decoder and the rnn encoder; the fused
-    decoder has no backward (ValueError, as in JAX), and what is not ported
-    names its ROADMAP item."""
+    """Training runs on the plain decoder: the fused decoder has no backward
+    (ValueError, as in JAX).  Imported cell parameters are held to JAX in
+    ``test_torch_lstm.py``."""
     cfg = ModelConfig(hidden_dim=16, embed_dim=16, num_heads=2, remat=True)
     model = Forecaster(cfg, 8, 12, device="cpu", generator=torch.Generator().manual_seed(0))
     xy, mask = torch.zeros(1, 4, 8, 2), torch.ones(1, 4, dtype=torch.bool)
@@ -169,15 +167,3 @@ def test_training_flags_and_imported_params_raise():
     for kw in (dict(train=True), dict(remat=True)):
         with pytest.raises(ValueError, match="use_fused_decoder"):
             fused.rollout_k(xy, mask, stats, 2, **kw)
-    attn = Forecaster(dataclasses.replace(cfg, encoder="attn"), 8, 12, device="cpu",
-                      generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: item 2"):
-        attn.encode(xy, mask, stats, train=True)
-    dots = Forecaster(dataclasses.replace(cfg, remat_policy="dots"), 8, 12, device="cpu",
-                      state=model.state_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: item 2"):
-        dots.encode(xy, mask, stats, train=True)
-    state = dict(model.state_dict())
-    state["dec.cell.bh"] = torch.zeros(48)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Forecaster(cfg, 8, 12, device="cpu", state=state)

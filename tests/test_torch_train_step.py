@@ -18,21 +18,19 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
 from mmtraj import config as jconfig
 from mmtraj.data.transforms import NormStats as JNormStats
 from mmtraj.models.forecaster import Forecaster as JForecaster
-from mmtraj.models.forecaster import _dropout_masks as j_dropout_masks
 from mmtraj.train import make_train_step as j_make_train_step
 from mmtraj_torch import config, train
 from mmtraj_torch.data.transforms import NormStats
 from mmtraj_torch.models.forecaster import Forecaster
 from mmtraj_torch.ops import fused_attend, fused_gat
 from mmtraj_torch.params import flatten, from_jax
-from torch_jax_streams import SMALL, TO, TP, random_windows
+from torch_jax_streams import SMALL, TO, TP, grad_keeper, jax_step_draws, random_windows
 
 torch.set_num_threads(2)
 
@@ -53,38 +51,6 @@ def _batch():
     return xy, mask
 
 
-def _grad_keeper():
-    """An optax transformation whose state is the last gradient and whose
-    update is zero, so ``make_train_step`` hands back JAX's gradients."""
-    return optax.GradientTransformation(
-        lambda p: jax.tree.map(jnp.zeros_like, p),
-        lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
-
-
-def _jax_draws(jm, seed, step, rotate, flip, variety_n):
-    """JAX's draws for the step as ``mmtraj/train.py:93-97`` and
-    ``augment_windows`` make them, in the port's ``StepDraws``."""
-    step_key = jax.random.fold_in(jax.random.PRNGKey(seed ^ 0x5EED), step)
-    if variety_n:
-        k_aug, k_drop, vkey = jax.random.split(step_key, 3)
-    else:
-        k_aug, k_drop = jax.random.split(step_key)
-    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-    theta = det = drop = stream = None
-    if rotate or flip:
-        kr, kf = jax.random.split(k_aug)
-        theta = t(jax.random.uniform(kr, (B,), minval=0.0, maxval=2.0 * jnp.pi) if rotate
-                  else jnp.zeros((B,), jnp.float32))
-        det = t(jnp.where(jax.random.bernoulli(kf, 0.5, (B,)), -1.0, 1.0) if flip
-                else jnp.ones((B,), jnp.float32))
-    if jm.cfg.dropout > 0:
-        drop = tuple({k: t(v) for k, v in d.items()}
-                     for d in j_dropout_masks(k_drop, jm.cfg, B, N))
-    if variety_n:
-        stream = tuple(t(a) for a in jm._rollout_stream(vkey, variety_n * B, N))
-    return train.StepDraws(theta, det, drop, stream)
-
-
 def _configs(route, dropout):
     jmc = dataclasses.replace(jconfig.config4().model, **SMALL, remat=True, dropout=dropout,
                               **ROUTES[route])
@@ -102,12 +68,13 @@ def test_train_step_loss_and_gradients_match_jax(loss_mode, route, monkeypatch):
     xy, mask = _batch()
     kw = dict(augment_rotate=True, augment_flip=True, seed=SEED, loss_mode=loss_mode,
               variety_n=VARIETY_N, variety_weight=0.7, variety_fde_weight=0.5)
-    keeper = _grad_keeper()
+    keeper = grad_keeper()
     jstep = j_make_train_step(jm, keeper, JNormStats(MEAN, STD), **kw)
     _, jgrads, jloss = jstep(params, keeper.init(params), jnp.asarray(xy), jnp.asarray(mask),
                              jnp.int32(STEP))
 
-    draws = _jax_draws(jm, SEED, STEP, True, True, VARIETY_N if loss_mode != "nll" else 0)
+    draws = jax_step_draws(jm)(None, SEED, STEP, B, N, True, True,
+                               VARIETY_N if loss_mode != "nll" else 0)
     monkeypatch.setattr(train, "step_draws", lambda *a, **k: draws)
     model = Forecaster(mc, TO, TP, device="cpu", state=state)
     cfg = config.config4().replace(model=mc)
