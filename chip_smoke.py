@@ -82,7 +82,26 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    gradients against "full", their peak memory and steps/s at
    ``REMAT_BATCHES``; the LSTM with the social GAT, ``use_pallas`` against
    plain, three steps and a rollout.  The wrappers count Python calls, so a
-   chunk counts its warm-up steps and its capture, and its replays nothing.
+   chunk counts its warm-up steps and its capture, and its replays nothing;
+12. (run before 7's line) ``dtype="bfloat16"`` at the same width: routes
+   plain, A and B under bf16 with exact launches (the float32 routes'),
+   each kernel route's encoder and decoder steps against the plain route's
+   from the plain route's state, step by step (hidden state within
+   ``BF16_STEP_RTOL`` of its largest on all but 1% of rows: a bf16 rounding
+   flip carried through later steps forks a rollout, so whole rollouts of
+   two implementations agree only in distribution), route A's rollout
+   against the plain float32 decoder from route A's own bf16 encoder state
+   (within 1e-3 m, 1%), best-of-K ADE/FDE of route B against plain within
+   ``BF16_ADE_TOL``, bf16 away from float32, a CUDA graph of bf16 route A
+   against eager, and graphed route A's device time in bf16 and float32 in
+   turns; training under bf16 (three steps of nll and variety,
+   ``use_pallas`` against plain: the first step's loss within 1e-5, later
+   ones within ``BF16_LATER_LOSS_RTOL``; one graphed chunk against eager steps,
+   ``train_bench`` bf16 and float32 in turns); a route-A checkpoint saved
+   as ``.pt``, converted to ``.npz`` by ``python -m mmtraj_torch.cli
+   convert``, both scored by ``cli eval`` with identical lines, and ``cli
+   eval --dtype bfloat16`` of route A and plain checkpoints on the first
+   ``EVAL_SUB`` windows of univ, within ``EVAL_ADE_TOL``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -100,6 +119,7 @@ import math
 import re
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -136,6 +156,16 @@ ATTN_LATER_LOSS_RTOL = 1e-4
 # whose gradient is within rounding of 0 may move the other way: every
 # element within 2 lr a step, and 99% of them within PARAM_TOL.
 PARAM_TOL = 1e-4
+# Phase 12 (bf16): a kernel route's step against the plain route's from the
+# same state, of the new hidden state's largest |value|; best-of-K ADE/FDE of
+# two bf16 routes, meters.
+BF16_STEP_RTOL = 1e-5
+BF16_ADE_TOL = 1e-3
+# Phase 12's bf16 training after the first update: the two routes' parameters
+# then differ as PARAM_TOL allows, and bf16 rollouts (the variety objective)
+# fork on a rounding flip, so later losses are those of two nearby models
+# (1.9e-4 apart at step 3 of variety on an H100).
+BF16_LATER_LOSS_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -880,6 +910,273 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
     log("graphed training " + json.dumps(summary))
 
 
+def synced_steps(torch, ref, other, xy_obs, mask, stats, stream):
+    """The encoder's TO steps and the decoder's TP sampled steps of ``other``
+    against ``ref``'s, each from ``ref``'s state (its carry, and its sampled
+    offsets on ``stream``), so that no difference carries from one step to
+    the next -> per step (rows of the new hidden state past BF16_STEP_RTOL
+    of its largest |value|, rows, largest error of the other rows)."""
+    from mmtraj_torch.data.transforms import denormalize, normalize, to_relative
+    from mmtraj_torch.models import forecaster as fc
+    from mmtraj_torch.models import gmm
+    from mmtraj_torch.models.cells import Carry, init_carry
+
+    def rows(got, want):
+        err = (got - want).abs().flatten(0, -2).amax(-1) / want.abs().max().clamp_min(1e-30)
+        past = err > BF16_STEP_RTOL
+        return int(past.sum()), err.numel(), (err[~past].max().item() if (~past).any() else 0.0)
+
+    p = ref.params()
+    dt = fc._compute_dtype(ref.cfg)
+    pe, pd = fc._round_coder(p["enc"], dt), fc._round_coder(p["dec"], dt)
+    B, Nm = mask.shape
+    out = []
+    carry = init_carry((B, Nm), ref.cfg.hidden_dim, xy_obs.device)
+    dxy_n = normalize(to_relative(xy_obs), stats)
+    for t in range(TO):
+        args = (carry, dxy_n[:, :, t], xy_obs[:, :, t], mask)
+        nxt = fc._step(pe, ref.cfg, *args)
+        out.append(rows(fc._step(pe, other.cfg, *args).h, nxt.h))
+        carry = nxt
+    carry = ref._bridge(p, carry.h, carry.c)
+
+    def tile(a):
+        return a.repeat((K,) + (1,) * (a.ndim - 1))
+
+    carry, xy, mask_k = Carry(tile(carry.h), tile(carry.c)), tile(xy_obs[:, :, -1]), tile(mask)
+    for t in range(TP):
+        dxy = gmm.sample_from(ref._head(p, carry.h), stream[0][:, t], stream[1][:, t])
+        xy = xy + denormalize(dxy, stats)
+        nxt = fc._step(pd, ref.cfg, carry, dxy, xy, mask_k)
+        out.append(rows(fc._step(pd, other.cfg, carry, dxy, xy, mask_k).h, nxt.h))
+        carry = nxt
+    return out
+
+
+def bf16_phase(torch, dev, card, cfg, plain_cfg, route_a, route_b, state, stats, xy_obs, mask,
+               gt, counted, zero) -> None:
+    """Phase 12: ``dtype="bfloat16"`` through inference, training and the
+    checkpoint formats, at config 4's full width."""
+    from mmtraj_torch import checkpoint
+    from mmtraj_torch import cli as torch_cli
+    from mmtraj_torch import train as tr
+    from mmtraj_torch.benchmarks import bench, train_bench
+    from mmtraj_torch.data import registry
+    from mmtraj_torch.data.registry import load_split
+    from mmtraj_torch.data.transforms import NormStats, compute_norm_stats
+    from mmtraj_torch.metrics import best_of_k
+    from mmtraj_torch.models.forecaster import Forecaster
+
+    summary = {"card": card}
+
+    def bf16(mc):
+        return dataclasses.replace(mc, dtype="bfloat16")
+
+    # a. Inference: launches, steps from the plain route's state, rollouts.
+    models = {name: Forecaster(mc, TO, TP, device=dev, state=state) for name, mc in (
+        ("plain", bf16(plain_cfg)), ("A", bf16(route_a)), ("B", bf16(route_b)),
+        ("plain f32", plain_cfg), ("A f32", route_a), ("B f32", route_b))}
+    stream = models["plain"]._rollout_stream(K * B, N, torch.Generator(device=dev).manual_seed(5))
+    rolls, counts = {}, {}
+    for name, model in models.items():
+        rolls[name], counts[name] = counted(
+            lambda: model.rollout_k(xy_obs, mask, stats, K, stream=stream))
+        check(rolls[name].shape == (K, B, N, TP, 2) and bool(torch.isfinite(rolls[name]).all()),
+              f"bf16 {name}: shape {tuple(rolls[name].shape)} or not finite")
+    want = {"plain": zero, "A": {**zero, "fused_gat": TO, "fused_decode": 1},
+            "B": {**zero, "attend": TO + TP}}
+    for name, w in want.items():
+        check(counts[name] == w and counts[f"{name} f32"] == w,
+              f"bf16 {name}: launches {counts[name]}, float32 {counts[name + ' f32']}, want {w}")
+    steps = {name: synced_steps(torch, models["plain"], models[name], xy_obs, mask, stats, stream)
+             for name in ("A", "B")}
+    for name, per in steps.items():
+        for t, (past, n_rows, others) in enumerate(per):
+            check(past <= MAX_DIVERGED * n_rows and others <= BF16_STEP_RTOL,
+                  f"bf16 {name} step {t}: {past} of {n_rows} rows past {BF16_STEP_RTOL}, "
+                  f"others {others}")
+    # route A's decoder is float32: against the plain float32 decoder from
+    # route A's own bf16 encoder state.
+    carry_a = models["A"].encode(xy_obs, mask, stats)
+    split = models["plain f32"].rollout_k(xy_obs, mask, stats, K, carry=carry_a, stream=stream)
+    d = torch.where(mask[None, :, :, None, None], (rolls["A"] - split).abs(), 0.0)
+    per = d.flatten(2).amax(2)
+    n_bad = int((per > ROLLOUT_TOL).sum())
+    check(n_bad <= MAX_DIVERGED * K * B,
+          f"bf16 A vs the float32 decoder from its encoder: {n_bad} of {K * B} past {ROLLOUT_TOL}")
+    metrics = {name: [float(x) for x in best_of_k(r, gt, mask)] for name, r in rolls.items()}
+    d_b = max(abs(a - c) for a, c in zip(metrics["B"], metrics["plain"]))
+    check(d_b <= BF16_ADE_TOL, f"bf16 B vs plain best-of-K {metrics['B']} vs {metrics['plain']}")
+    moved = torch.where(mask[None, :, :, None, None], (rolls["plain"] - rolls["plain f32"]).abs(),
+                        0.0).max().item()
+    check(moved > 1e-4, f"bf16 plain is only {moved} m from float32 plain")
+    g_err = bench.graph_vs_eager(models["A"], xy_obs, mask, stats, K, stream)
+    check(g_err <= GRAPH_TOL, f"bf16 A: graph vs eager {g_err} m")
+    graphs = {name: bench.capture(lambda m=models[name]: m.rollout_k(xy_obs, mask, stats, K), dev)[0]
+              for name in ("A", "A f32")}
+    times = {name: [] for name in graphs}
+    for r in range(20):
+        for name in (("A", "A f32") if r % 2 == 0 else ("A f32", "A")):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[name].replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    del graphs
+    graph_ms = {name: statistics.median(v) for name, v in times.items()}
+    eager_ms = {name: [] for name in ("A", "A f32")}
+    for name in ("A", "A f32", "A f32", "A"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            models[name].rollout_k(xy_obs, mask, stats, K)
+        torch.cuda.synchronize()
+        eager_ms[name].append((time.perf_counter() - t0) * 1e2)
+    summary["inference"] = {
+        "launches": {k: counts[k] for k in want}, "metrics_ade_fde": metrics,
+        "steps_rows_past": {k: [x[0] for x in v] for k, v in steps.items()},
+        "steps_others_max": {k: max(x[2] for x in v) for k, v in steps.items()},
+        "a_vs_f32_decoder_past": n_bad,
+        "a_vs_f32_decoder_max_m": per[per <= ROLLOUT_TOL].max().item(),
+        "bf16_vs_f32_plain_max_m": moved, "graph_vs_eager_m": g_err, "graphed_a_ms": graph_ms,
+        "eager_a_ms": eager_ms}
+    log(f"bf16 inference (B={B}, N={N}, K={K}): launches {summary['inference']['launches']} "
+        f"(the float32 routes'); steps from the plain route's state, rows past "
+        f"{BF16_STEP_RTOL}: {summary['inference']['steps_rows_past']} of {B * N} (encoder) and "
+        f"{K * B * N} (decoder), others within {summary['inference']['steps_others_max']}; "
+        f"route A vs the float32 decoder from its bf16 encoder: {n_bad} of {K * B} past "
+        f"{ROLLOUT_TOL} m; best-of-{K} ADE/FDE {json.dumps(metrics)}; bf16 vs float32 plain "
+        f"{moved:.3e} m; graph vs eager {g_err:.3e} m; graphed route A {graph_ms['A']:.4f} ms "
+        f"bf16, {graph_ms['A f32']:.4f} ms float32 (medians of 20 replays in turns); eager "
+        f"route A ms a call (10 calls, in turns) {json.dumps(eager_ms)}; {card}")
+
+    # b. Training under bf16: use_pallas against plain, a graphed chunk, rates.
+    TB, lr = cfg.train.batch_size, cfg.train.lr
+    per_step = 2 * (TO + TP)
+    xy, tmask = train_bench.fake_batch(TB, N, TO + TP, dev)
+    tstats = NormStats(torch.zeros(2, device=dev), torch.ones(2, device=dev))
+    train_rows = {}
+
+    def flat(model):
+        return torch.cat([p.detach().flatten() for p in model.parameters()])
+
+    with torch.enable_grad():
+        for loss_mode in ("nll", "variety"):
+            runs = {}
+            for use_pallas in (False, True):
+                mc = bf16(dataclasses.replace(cfg.model, use_pallas=use_pallas))
+                model = Forecaster(mc, TO, TP, device=dev, state=state)
+                step = tr.make_train_step(model, tr.make_optimizer(cfg.replace(model=mc), model),
+                                          tstats, loss_mode=loss_mode, variety_n=VARIETY_N)
+                losses = []
+                for s in range(TRAIN_STEPS):
+                    loss, c = counted(lambda: step(xy, tmask, s))
+                    w = {**zero, "fused_gat": per_step if use_pallas else 0}
+                    check(c == w, f"bf16 train {loss_mode} step {s}: launches {c}, want {w}")
+                    losses.append(float(loss))
+                runs[use_pallas] = (losses, flat(model))
+            rel = [abs(a - c) / abs(c) for a, c in zip(runs[True][0], runs[False][0])]
+            dp = (runs[True][1] - runs[False][1]).abs()
+            share = (dp > PARAM_TOL).float().mean().item()
+            check(rel[0] <= TRAIN_LOSS_RTOL and max(rel) <= BF16_LATER_LOSS_RTOL,
+                  f"bf16 train {loss_mode}: losses {runs[True][0]} vs {runs[False][0]}")
+            check(dp.max().item() <= 2 * lr * TRAIN_STEPS and share <= 0.01,
+                  f"bf16 train {loss_mode}: parameters max |d| {dp.max().item()}, share {share}")
+            train_rows[loss_mode] = {"losses": runs[True][0], "loss_rel": rel,
+                                     "param_max_abs": dp.max().item(), "param_share": share}
+            log(f"bf16 train {loss_mode} (B={TB}, {TRAIN_STEPS} steps): use_pallas losses "
+                f"{runs[True][0]} vs plain {runs[False][0]} (rel {[f'{x:.2e}' for x in rel]}, "
+                f"tol {TRAIN_LOSS_RTOL} at step 1, {BF16_LATER_LOSS_RTOL} after); parameters max "
+                f"|d| {dp.max().item():.3e}, share past "
+                f"{PARAM_TOL} {share:.2e}; fused_gat {per_step} launches a step")
+        # one graphed chunk of CHUNK_M steps against as many eager steps
+        mc = bf16(dataclasses.replace(cfg.model, use_pallas=True))
+        xy_all, mask_all = train_bench.fake_batch(4 * TB, N, TO + TP, dev, seed=5)
+        idx = np.stack([np.random.default_rng(6).permutation(4 * TB)[:TB] for _ in range(CHUNK_M)])
+        me = Forecaster(mc, TO, TP, device=dev, state=state)
+        step = tr.make_train_step(me, tr.make_optimizer(cfg.replace(model=mc), me), tstats)
+        eager = [float(step(xy_all[torch.as_tensor(i, device=dev)],
+                            mask_all[torch.as_tensor(i, device=dev)], s))
+                 for s, i in enumerate(idx)]
+        mg = Forecaster(mc, TO, TP, device=dev, state=state)
+        multi = tr.make_multi_train_step(mg, tr.make_optimizer(cfg.replace(model=mc), mg), tstats)
+        graphed, c = counted(lambda: multi(xy_all, mask_all, idx, range(CHUNK_M)).tolist())
+        w = {**zero, "fused_gat": (tr.CAPTURE_WARMUP + 1) * per_step}
+        check(c == w, f"bf16 graphed chunk: launches {c}, want {w}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(graphed, eager))
+        dp = (flat(mg) - flat(me)).abs()
+        check(rel <= TRAIN_LOSS_RTOL and dp.max().item() <= 2 * lr * CHUNK_M
+              and (dp > PARAM_TOL).float().mean().item() <= 0.01,
+              f"bf16 graphed chunk vs eager: losses {graphed} vs {eager}, params {dp.max().item()}")
+        train_rows["graphed_chunk"] = {"loss_rel": rel, "param_max_abs": dp.max().item()}
+        log(f"bf16 graphed chunk of {CHUNK_M} (use_pallas, nll) vs eager steps: losses within "
+            f"{rel:.2e} relative, parameters max |d| {dp.max().item():.3e}")
+        rates = {}
+        for m_ in (1, CHUNK_M):
+            for dtype in ("bfloat16", "float32", "float32", "bfloat16"):
+                r = train_bench.bench_train_step(TB, min_seconds=1.0, use_pallas=True, device=dev,
+                                                 flops=False, steps_per_dispatch=m_,
+                                                 model_kw={"dtype": dtype})
+                rates.setdefault(f"{dtype} M={m_}", []).append(r.steps_per_sec)
+                log("train_bench " + train_bench._fmt(r))
+        train_rows["train_bench_steps_per_s"] = rates
+    summary["training"] = train_rows
+
+    # c. Checkpoints: .pt written, converted to .npz by the CLI, both evaluated.
+    train_w, _ = load_split(str(EVAL_DATA), "univ", TO, TP)
+    estats = compute_norm_stats(train_w, TO)
+    eval_cfg = cfg.replace(data=dataclasses.replace(cfg.data, data_dir=str(EVAL_DATA)))
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_ckpt_", dir=Path(__file__).resolve().parent))
+    real_load = registry.load_scene_windows
+    try:
+        pt, npz, plain_pt = (str(tmp / n) for n in ("route_a.pt", "route_a.npz", "plain.pt"))
+        checkpoint.save(pt, state, estats, eval_cfg.replace(model=route_a), step=3)
+        checkpoint.save(plain_pt, state, estats, eval_cfg.replace(model=plain_cfg), step=3)
+        t0 = time.perf_counter()
+        conv = subprocess.run([sys.executable, "-m", "mmtraj_torch.cli", "convert", "--src", pt,
+                               "--dst", npz], cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=300)
+        check(conv.returncode == 0, f"cli convert: {conv.returncode} {conv.stderr[-2000:]}")
+        convert_s = time.perf_counter() - t0
+
+        def cli_eval(path, *flags):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                code, c = counted(lambda: torch_cli.main(["eval", "--ckpt", path, "--k", str(K),
+                                                          "--device", str(dev), *flags]))
+            check(code == 0, f"cli eval {path} {flags}: exit {code}")
+            return out.getvalue().strip().splitlines()[-1], c
+
+        line_pt, c_pt = cli_eval(pt)
+        line_npz, c_npz = cli_eval(npz)
+        check(line_pt == line_npz and c_pt == c_npz and c_pt["fused_decode"] > 0
+              and c_pt["fused_gat"] == (TO + TP) * c_pt["fused_decode"],
+              f"cli eval .pt vs .npz: {line_pt!r} vs {line_npz!r}, launches {c_pt} vs {c_npz}")
+        registry.load_scene_windows = lambda *a, **kw: real_load(*a, **kw)[:EVAL_SUB]
+        line_a, c_a = cli_eval(pt, "--dtype", "bfloat16")
+        line_p, c_p = cli_eval(plain_pt, "--dtype", "bfloat16")
+    finally:
+        registry.load_scene_windows = real_load
+        shutil.rmtree(tmp)
+    check(c_p == zero and c_a["fused_decode"] > 0
+          and c_a["fused_gat"] == (TO + TP) * c_a["fused_decode"],
+          f"cli eval --dtype bfloat16 launches: route A {c_a}, plain {c_p}")
+    nums_a, nums_p = dict(_LINE_NUMS.findall(line_a)), dict(_LINE_NUMS.findall(line_p))
+    d_ade = abs(float(nums_a["ADE"]) - float(nums_p["ADE"]))
+    d_fde = abs(float(nums_a["FDE"]) - float(nums_p["FDE"]))
+    check(d_ade <= EVAL_ADE_TOL and d_fde <= EVAL_ADE_TOL,
+          f"cli eval --dtype bfloat16: route A {line_a!r} vs plain {line_p!r}")
+    summary["checkpoints"] = {"convert_s": convert_s, "eval_line": line_pt,
+                              "bf16_eval_lines": {"A": line_a, "plain": line_p},
+                              "bf16_d_ade_fde_m": [d_ade, d_fde]}
+    log(f"checkpoints: .pt -> .npz by cli convert ({convert_s:.1f} s); cli eval of both: {line_pt}; "
+        f"launches {c_pt}; cli eval --dtype bfloat16 on the first {EVAL_SUB} windows: route A "
+        f"{line_a} (launches {c_a}), plain {line_p}; |d ADE| {d_ade:.2e} m, |d FDE| {d_fde:.2e} m "
+        f"(tol {EVAL_ADE_TOL})")
+    log("bf16 " + json.dumps(summary))
+
+
 def main() -> int:
     import torch
 
@@ -1263,6 +1560,12 @@ def main() -> int:
     t0 = time.perf_counter()
     graphed_training_phase(torch, dev, card, cfg, counted, dict.fromkeys(counters, 0))
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. bf16 and the checkpoint formats -------------------------------------------------
+    t0 = time.perf_counter()
+    bf16_phase(torch, dev, card, cfg, plain_cfg, route_a, route_b, state, stats, xy_obs, mask, gt,
+               counted, dict.fromkeys(counters, 0))
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

@@ -16,10 +16,13 @@ and replayed M times a chunk), and reports:
   step's activations and, in chunks, the graph's pool;
 - FLOPs a step, counted by ``torch.utils.flop_counter.FlopCounterMode`` over
   one eager step (forward and backward, the checkpoint recomputation
-  included) of the plain route at the same shape: the kernels do the same
-  products, so the count is the same work whatever implements it;
+  included) of the plain route in float32 at the same shape: the kernels do
+  the same products, and so does bf16, so the count is the same work
+  whatever implements it;
 - ``mfu`` against the H100's 67 TFLOP/s float32 peak outside the tensor
-  cores (on the card only);
+  cores (on the card only), for bf16 too: its products multiply operands
+  rounded to bf16 as float32 products (``models/layers.matmul``), not on
+  the tensor cores;
 - each kernel's launches in one step (of a chunk: the launches of the
   graph's capture, which every replay repeats; the wrappers count Python
   calls, so a replay adds nothing to their counters);
@@ -27,12 +30,13 @@ and replayed M times a chunk), and reports:
   host's enqueue time, the device's busy share, kernels a step and the
   largest device times (of the graphed step under ``--steps-per-dispatch``).
 
-``--encoder attn``, ``--cell lstm`` and ``--remat-policy`` (``--no-remat``)
-change the model from config 4's.
+``--encoder attn``, ``--cell lstm``, ``--remat-policy`` (``--no-remat``) and
+``--dtype bfloat16`` change the model from config 4's.
 
 Run:  python -m mmtraj_torch.benchmarks.train_bench --batch 16 --use-pallas
       python -m mmtraj_torch.benchmarks.train_bench --batch 16 --steps-per-dispatch 10
       python -m mmtraj_torch.benchmarks.train_bench --loss variety --profile
+      python -m mmtraj_torch.benchmarks.train_bench --batch 16 --dtype bfloat16
       python -m mmtraj_torch.benchmarks.train_bench --device cpu --batch 2 --n-max 8 --iters 2
 """
 
@@ -135,7 +139,7 @@ def bench_train_step(batch_size: int = 128, remat: bool = True, n_max: int = 64,
     ``loss_mode``/``variety_n`` the objective; ``steps_per_dispatch`` the
     chunk (one dispatch, a graph replayed, for M steps); ``model_kw``
     further ``ModelConfig`` fields (``encoder``, ``cell``,
-    ``remat_policy``)."""
+    ``remat_policy``, ``dtype``)."""
     dev = resolve_device(device)
     M = steps_per_dispatch
     if dev.type == "cuda":
@@ -176,8 +180,9 @@ def bench_train_step(batch_size: int = 128, remat: bool = True, n_max: int = 64,
 
     flops_step = None
     if flops:
+        f32_kw = {k: v for k, v in (model_kw or {}).items() if k != "dtype"}
         _, plain_step, _, _ = _setup(batch_size, remat, n_max, False, "xla", loss_mode,
-                                     variety_n, dev, model_kw)
+                                     variety_n, dev, f32_kw)
         flops_step = count_flops(lambda: plain_step(0))
     mfu = flops_step * sps / F32_PEAK if (flops_step and dev.type == "cuda") else None
     route = "pallas" if use_pallas else (f"attend={attend_kernel}" if attend_kernel else "plain")
@@ -244,7 +249,7 @@ def profile_train_step(batch_size: int = 16, n_max: int = 64, use_pallas: bool =
 
 def _fmt(r: TrainBenchResult) -> str:
     fl = f"{r.flops_per_step / 1e9:8.2f} GF" if r.flops_per_step else "     n/a"
-    mfu = f"{100 * r.mfu:6.2f}%" if r.mfu is not None else "   n/a"
+    mfu = f"{100 * r.mfu:6.2f}% of f32 peak" if r.mfu is not None else "   n/a"
     mem = f"{r.peak_mem_bytes / 2**20:9.1f} MiB" if r.peak_mem_bytes is not None else "      n/a"
     return (f"B={r.batch_size:<5d} route={r.route:<8s} loss={r.loss:<8s} remat={r.remat!s:<5s} "
             f"M={r.steps_per_dispatch:<3d} model={r.model} "
@@ -268,12 +273,17 @@ def main(argv=None) -> None:
     ap.add_argument("--encoder", default=None, choices=("rnn", "attn"))
     ap.add_argument("--cell", default=None, choices=("gru", "lstm"))
     ap.add_argument("--remat-policy", default=None, choices=("full", "dots", "dots_no_batch"))
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the products' operand dtype (ModelConfig.dtype); MFU stays against "
+                         "the float32 peak")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--profile", action="store_true",
                     help="print where a step's time goes (torch.profiler) as one JSON line")
     args = ap.parse_args(argv)
     model_kw = {k: v for k, v in (("encoder", args.encoder), ("cell", args.cell),
                                   ("remat_policy", args.remat_policy)) if v is not None}
+    if args.dtype != "float32":
+        model_kw["dtype"] = args.dtype
     if args.profile:
         print(json.dumps(profile_train_step(args.batch, args.n_max, args.use_pallas, args.loss,
                                             args.variety_n, args.device,

@@ -1,15 +1,23 @@
 """Command-line entry point of the port (counterpart of ``mmtraj/cli.py``).
 Ported: ``train`` (single device, resident data; the flags below),
 ``eval`` (scores a checkpoint on the held-out scene and prints the JAX
-package's eval line) and ``autotune-eval`` (the fastest eval batch on this
-card).
+package's eval line), ``autotune-eval`` (the fastest eval batch on this
+card) and ``convert`` (a checkpoint between the .npz, .pt and .h5 formats,
+and to and from Keras's legacy ``save_weights`` layout).  ``eval`` and
+``autotune-eval`` read any format ``mmtraj_torch.checkpoint.load`` reads;
+an Orbax directory is converted with the JAX package's ``python -m
+mmtraj.cli convert`` first.
 
 Usage:
   python -m mmtraj_torch.cli train --config 4 --data-dir data/synthetic3000 --out-dir runs/x
   python -m mmtraj_torch.cli train --config 1 --data-dir ... --steps-per-dispatch 10
   python -m mmtraj_torch.cli eval --ckpt runs/x/checkpoint.npz --data-dir data/synthetic3000
+  python -m mmtraj_torch.cli eval --ckpt runs/x/model.pt --dtype bfloat16
   python -m mmtraj_torch.cli autotune-eval --ckpt runs/x/checkpoint.npz
   python -m mmtraj_torch.cli eval --ckpt ... --data-dir ... --device cpu
+  python -m mmtraj_torch.cli convert --src runs/x/checkpoint.npz --dst runs/x/model.pt
+  python -m mmtraj_torch.cli convert --keras --src runs/x/checkpoint.npz --dst keras.h5
+  python -m mmtraj_torch.cli convert --keras --src keras.h5 --like x.npz --dst imported.npz
 
 It runs on the card unless ``--device cpu`` is given.
 """
@@ -18,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import sys
 
 from mmtraj_torch.config import SCENES, get_config
@@ -93,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_train(sub)
     ep = sub.add_parser("eval", help="evaluate a checkpoint (best-of-K ADE/FDE)")
-    ep.add_argument("--ckpt", required=True, help="an npz checkpoint (either package's)")
+    ep.add_argument("--ckpt", required=True,
+                    help="a .npz, .pt or .h5 checkpoint (either package's)")
     ep.add_argument("--data-dir", default=None, help="annotation dir ({scene}.txt files)")
     ep.add_argument("--scene", default=None, choices=SCENES, help="held-out scene")
     ep.add_argument("--k", type=int, default=None, help="K samples for best-of-K")
@@ -117,7 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
     ep.add_argument("--data-parallel", action="store_true", help="not ported")
     ep.add_argument("--reduction", default="per_agent", choices=("per_agent", "per_window"))
     ep.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
-                    help="override the model compute dtype (bfloat16 is not ported)")
+                    help="override the model compute dtype (bfloat16: the products' "
+                         "operands rounded to bf16, their results float32)")
     ep.add_argument("--buckets", type=int, nargs="+", default=None,
                     help="agent-capacity shape buckets, e.g. 16 32 64")
     ep.add_argument("--auto-n-max", action="store_true",
@@ -134,6 +143,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="candidate batch sizes to time (default: a bracket around "
                          "vmem_friendly_batch)")
     at.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+    cp = sub.add_parser("convert", help="convert a checkpoint between formats (.npz / .pt / .h5)")
+    cp.add_argument("--src", required=True, help="source checkpoint path")
+    cp.add_argument("--dst", required=True, help="destination path; the suffix picks the format")
+    cp.add_argument("--keras", action="store_true",
+                    help="treat .h5 files as Keras's legacy save_weights layout (reference "
+                         "layer names, mmtraj_torch/interop.py) instead of the flat h5; weights "
+                         "only, so a Keras --src needs --like for the config and norm stats")
+    cp.add_argument("--like", default=None,
+                    help="with --keras and a Keras --src: the checkpoint whose config and norm "
+                         "stats the Keras weights belong to")
     return ap
 
 
@@ -190,15 +210,6 @@ def _apply_overrides(cfg, args):
     )
 
 
-def _load_checkpoint(path: str):
-    if path.endswith((".pt", ".pth", ".h5", ".hdf5")) or os.path.isdir(path):
-        raise not_ported(f"checkpoint {path!r}: the .pt, .h5 and Orbax formats",
-                         "item 4, checkpoint.py and interop.py")
-    from mmtraj_torch.params import load_npz
-
-    return load_npz(path)
-
-
 def _train(args) -> int:
     from mmtraj_torch.train import fit
 
@@ -211,10 +222,11 @@ def _train(args) -> int:
 
 
 def _autotune(args) -> int:
+    from mmtraj_torch import checkpoint
     from mmtraj_torch.evaluate import autotune_eval_batch
     from mmtraj_torch.models.forecaster import Forecaster
 
-    ck = _load_checkpoint(args.ckpt)
+    ck = checkpoint.load(args.ckpt)
     cfg = ck.config
     model = Forecaster(cfg.model, cfg.data.obs_len, cfg.data.pred_len, device=args.device,
                        state=ck.state)
@@ -224,20 +236,48 @@ def _autotune(args) -> int:
     return 0
 
 
+def _convert(args, parser) -> int:
+    """The JAX package's ``convert``, between the port's formats."""
+    from mmtraj_torch import checkpoint
+
+    if args.keras:
+        from mmtraj_torch.interop import load_keras_h5, save_keras_h5
+
+        if args.src.endswith(checkpoint.H5_SUFFIXES):
+            # Keras -> the port: Keras's save_weights keeps no config or stats,
+            # so they come from the --like checkpoint.
+            if not args.like:
+                parser.error("--keras import needs --like <ckpt> for config + norm stats")
+            donor = checkpoint.load(args.like)
+            state = load_keras_h5(args.src, donor.config.model)
+            checkpoint.save(args.dst, state, donor.stats, donor.config, donor.step)
+        else:
+            ck = checkpoint.load(args.src)
+            save_keras_h5(args.dst, ck.state, ck.config.model)
+        print(f"converted {args.src} -> {args.dst} (keras layout)")
+        return 0
+    ck = checkpoint.load(args.src)
+    checkpoint.save(args.dst, ck.state, ck.stats, ck.config, ck.step)
+    print(f"converted {args.src} -> {args.dst} (step={ck.step})")
+    return 0
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     if args.cmd == "train":
         return _train(args)
     if args.cmd == "autotune-eval":
         return _autotune(args)
+    if args.cmd == "convert":
+        return _convert(args, parser)
     if args.data_parallel:
         raise not_ported("eval --data-parallel", "item 6, scale-out")
-    if args.dtype == "bfloat16":
-        raise not_ported("eval --dtype bfloat16", "item 3, bf16")
+    from mmtraj_torch import checkpoint
     from mmtraj_torch.evaluate import evaluate
     from mmtraj_torch.models.forecaster import Forecaster
 
-    ck = _load_checkpoint(args.ckpt)
+    ck = checkpoint.load(args.ckpt)
     cfg = _apply_overrides(ck.config, args)
     ds = _load_eval_dataset(cfg, args.auto_n_max)
     model = Forecaster(cfg.model, cfg.data.obs_len, cfg.data.pred_len, device=args.device,

@@ -8,9 +8,10 @@ In the port, ``use_pallas=True`` selects the hand-written Hopper GAT kernel
 (``ops/fused_gat.py``), ``attend_kernel="pallas"`` the Hopper attend kernel
 (``ops/fused_attend.py``) and ``use_fused_decoder=True`` the Hopper rollout
 kernel (``ops/fused_decoder.py``).  ``remat``, ``remat_policy`` and
-``dropout`` are read only by training.  ``dtype="bfloat16"`` and preset 5's
-``data_parallel`` name parts that are not ported yet; they raise where they
-are used.
+``dropout`` are read only by training.  ``dtype="bfloat16"`` rounds the
+operands of the model's products to bf16 and keeps their results float32
+(``models/layers.py``).  Preset 5's ``data_parallel`` names a part that is not
+ported yet; it raises where it is used.
 """
 
 from __future__ import annotations

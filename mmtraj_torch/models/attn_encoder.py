@@ -11,6 +11,10 @@ the readout is the layer-normed last observed step, zero on padded agents.
 The temporal attention is plain ``torch`` products, as the JAX package
 leaves it to XLA; the per-frame GAT reaches the attend kernel through
 ``gat_apply`` where its dispatch rule says so ("auto": N >= 128 on CUDA).
+Under ``compute_dtype=torch.bfloat16`` the products' operands are rounded to
+bf16 (``layers.matmul``): the embedding, the projection, q, k, v, the
+attention output before ``wo``, the MLP and the GAT's input; scores, the
+softmax, the layer norms and the residual stream stay float32.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from mmtraj_torch.models.layers import (
     glorot,
     layer_norm,
     layer_norm_init,
+    matmul,
     maybe_remat,
     mlp,
     mlp_init,
@@ -81,27 +86,31 @@ def sinusoidal_positions(T: int, H: int, device=None) -> torch.Tensor:
     return pe
 
 
-def _temporal_mhsa(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+def _temporal_mhsa(p: Params, x: torch.Tensor, num_heads: int, dtype=None) -> torch.Tensor:
     """Causal multi-head self-attention over the time axis, per agent:
     x (B, N, T, H) -> (B, N, T, H).  Scores are scaled by 1/sqrt(dh) and the
-    future is masked with -1e9; every row keeps at least itself."""
+    future is masked with -1e9; every row keeps at least itself.  ``dtype``
+    rounds the operands of the four products; scores and softmax are
+    float32."""
     B, N, T, H = x.shape
     dh = H // num_heads
+    xin = x if dtype is None else x.to(dtype)
 
     def split(a):
         return a.reshape(B, N, T, num_heads, dh)
 
-    q, k, v = split(x @ p["wq"]), split(x @ p["wk"]), split(x @ p["wv"])
+    q, k, v = (split(matmul(xin, p[w], dtype)) for w in ("wq", "wk", "wv"))
     scores = torch.einsum("bnthd,bnshd->bnhts", q, k) / math.sqrt(dh)
     causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
     scores = torch.where(causal, scores, NEG_INF)
     alpha = torch.softmax(scores, dim=-1)
     out = torch.einsum("bnhts,bnshd->bnthd", alpha, v).reshape(B, N, T, H)
-    return out @ p["wo"] + p["bo"]
+    return matmul(out, p["wo"], dtype) + p["bo"]
 
 
 def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
-                mask: torch.Tensor, drop=None, train: bool = False) -> torch.Tensor:
+                mask: torch.Tensor, drop=None, train: bool = False,
+                compute_dtype=None) -> torch.Tensor:
     """Encode an observation window -> (B, N, H) last-step features.
 
     xy_obs (B, N, To, 2) absolute meters (the per-frame proximity graphs),
@@ -110,12 +119,14 @@ def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
     "gat": (B, N, H)}, broadcast over time: "emb" scales the embedding,
     "gat" the GAT residual.  ``train`` marks a differentiated path, on which
     "auto" keeps the plain attend chain.  Each layer is checkpointed per
-    ``cfg.remat`` where a graph is recorded."""
+    ``cfg.remat`` where a graph is recorded.  ``compute_dtype``: the
+    products' operand dtype (None: float32); the result is float32."""
+    dt = compute_dtype
     B, N, T, _ = xy_obs.shape
-    x = torch.relu(dense(params["embed"], dxy_n))  # (B, N, T, E)
+    x = torch.relu(dense(params["embed"], dxy_n, dt))  # (B, N, T, E)
     if drop is not None:
         x = x * drop["emb"][:, :, None, :]
-    x = dense(params["proj"], x)  # (B, N, T, H)
+    x = dense(params["proj"], x, dt)  # (B, N, T, H)
     x = x + sinusoidal_positions(T, x.shape[-1], x.device)
 
     if cfg.social:
@@ -125,17 +136,17 @@ def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
         adj_flat = proximity_adjacency(xy_flat, mask_flat, cfg.adjacency_radius)
 
     def layer_apply(lp, x):
-        x = x + _temporal_mhsa(lp["attn"], layer_norm(lp["ln1"], x), cfg.num_heads)
+        x = x + _temporal_mhsa(lp["attn"], layer_norm(lp["ln1"], x), cfg.num_heads, dt)
         if cfg.social:
             y_flat = layer_norm(lp["ln2"], x).transpose(1, 2).reshape(B * T, N, -1)
-            g = gat_apply(lp["gat"], y_flat, adj_flat, mask_flat, cfg.num_heads,
+            g = gat_apply(lp["gat"], y_flat, adj_flat, mask_flat, cfg.num_heads, dt,
                           use_pallas=cfg.use_pallas, attend_kernel=cfg.attend_kernel,
                           train=train)
             g = g.reshape(B, T, N, -1).transpose(1, 2)  # (B, N, T, H)
             if drop is not None:
                 g = g * drop["gat"][:, :, None, :]
             x = x + g
-        return x + mlp(lp["mlp"], layer_norm(lp["ln3"], x))
+        return x + mlp(lp["mlp"], layer_norm(lp["ln3"], x), dt)
 
     layer_apply = maybe_remat(cfg, layer_apply)
     for i in range(cfg.attn_layers):

@@ -11,6 +11,11 @@ package: ``bh``, a recurrent bias added to h Wh (torch's and Keras's
 reset-after GRU put the n-gate's recurrent bias inside the reset product),
 and ``wh_n``, Keras's reset-before GRU, where ``wh`` covers z and r only and
 n = tanh(x Wxn + b_n + (r * h) Whn).
+
+``dtype=torch.bfloat16`` rounds x, h and the weights to bf16 for the two
+products (``layers.matmul``); the gates and the carry stay float32, and the
+update uses the unrounded h.  On the ``wh_n`` path r * h is itself a bf16
+product, rounded before the candidate product, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from mmtraj_torch.models.layers import Params, glorot
+from mmtraj_torch.models.layers import Params, glorot, matmul
 
 GATES = {"gru": 3, "lstm": 4}
 
@@ -51,11 +56,12 @@ def init_carry(batch_shape: Tuple[int, ...], hidden: int, device=None) -> Carry:
     return Carry(h=z, c=z)
 
 
-def cell_apply(p: Params, kind: str, x: torch.Tensor, carry: Carry) -> Carry:
+def cell_apply(p: Params, kind: str, x: torch.Tensor, carry: Carry, dtype=None) -> Carry:
     _gates(kind)
     h, c = carry.h, carry.c
-    xg = x @ p["wx"] + p["b"]
-    hg = h @ p["wh"]
+    hcast = h if dtype is None else h.to(dtype)
+    xg = matmul(x, p["wx"], dtype) + p["b"]
+    hg = matmul(hcast, p["wh"], dtype)
     if "bh" in p:
         hg = hg + p["bh"]
     hid = h.shape[-1]
@@ -67,7 +73,8 @@ def cell_apply(p: Params, kind: str, x: torch.Tensor, carry: Carry) -> Carry:
     z = torch.sigmoid(xg[..., :hid] + hg[..., :hid])
     r = torch.sigmoid(xg[..., hid:2 * hid] + hg[..., hid:2 * hid])
     if "wh_n" in p:
-        n = torch.tanh(xg[..., 2 * hid:] + (r * h) @ p["wh_n"])
+        rh = r * h if dtype is None else r.to(dtype) * hcast
+        n = torch.tanh(xg[..., 2 * hid:] + matmul(rh, p["wh_n"], dtype))
     else:
         n = torch.tanh(xg[..., 2 * hid:] + r * hg[..., 2 * hid:])
     return Carry(h=(1.0 - z) * n + z * h, c=c)

@@ -30,6 +30,14 @@ unless ``train=True``, so inference records none.  Random draws of training
 (dropout masks, the variety loss's stream) come in pre-drawn, as the
 rollout's stream does.  It runs on the card unless the caller asks for the
 CPU.
+
+``cfg.dtype="bfloat16"`` rounds the operands of the encoder's and the
+decoder step's products to bf16 and keeps every product's result, the
+parameters, the carries, the bridges, the GMM head and the losses float32
+(``_compute_dtype``, ``layers.matmul``).  The embedding and cell weights are
+rounded once a forward call (``_round_coder``).  The fused decoder takes no
+dtype: under bf16 route A runs a bf16 encoder and the float32 rollout
+kernel, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from mmtraj_torch.models import gmm
 from mmtraj_torch.models.attn_encoder import attn_encode
 from mmtraj_torch.models.cells import Carry, cell_apply, init_carry
 from mmtraj_torch.models.gat import gat_apply
-from mmtraj_torch.models.layers import Params, dense, maybe_remat
+from mmtraj_torch.models.layers import Params, bf16_weight, dense, maybe_remat
 from mmtraj_torch.ops import fused_decoder
 from mmtraj_torch.params import State, check_supported, init_params, unflatten
 
@@ -61,6 +69,22 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _compute_dtype(cfg: ModelConfig):
+    """The products' operand dtype: bf16 for ``dtype="bfloat16"``, else None
+    (float32)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else None
+
+
+def _round_coder(pp: Params, dt) -> Params:
+    """A coder's parameters for one forward call: under bf16 its embedding and
+    cell weights rounded once (``layers.bf16_weight``) for every step's
+    products; the GAT's stay float32.  Unchanged for float32."""
+    if dt is None:
+        return pp
+    cell = {k: bf16_weight(v) if k in ("wx", "wh", "wh_n") else v for k, v in pp["cell"].items()}
+    return {**pp, "embed": {**pp["embed"], "w": bf16_weight(pp["embed"]["w"])}, "cell": cell}
+
+
 def _step(pp: Params, cfg: ModelConfig, carry: Carry, dxy_n, xy_abs, mask, drop=None,
           train: bool = False) -> Carry:
     """Advance one frame: embed offset -> GRU -> social GAT residual.
@@ -69,15 +93,16 @@ def _step(pp: Params, cfg: ModelConfig, carry: Carry, dxy_n, xy_abs, mask, drop=
     scaled by 1/keep, one draw a forward pass reused at every step.
     ``train`` marks a differentiated path, on which "auto" keeps the plain
     attend chain as the JAX package does."""
-    x = torch.relu(dense(pp["embed"], dxy_n))
+    dt = _compute_dtype(cfg)
+    x = torch.relu(dense(pp["embed"], dxy_n, dt))
     if drop is not None:
         x = x * drop["emb"]
-    carry = cell_apply(pp["cell"], cfg.cell, x, carry)
+    carry = cell_apply(pp["cell"], cfg.cell, x, carry, dt)
     if cfg.social:
         adj = proximity_adjacency(xy_abs, mask, cfg.adjacency_radius)
         for li in range(cfg.gat_layers):
             g = gat_apply(pp["gat" if li == 0 else f"gat_{li}"], carry.h, adj, mask,
-                          cfg.num_heads, use_pallas=cfg.use_pallas,
+                          cfg.num_heads, dt, use_pallas=cfg.use_pallas,
                           attend_kernel=cfg.attend_kernel, train=train)
             if drop is not None:
                 g = g * drop["gat"]
@@ -164,11 +189,14 @@ class Forecaster(nn.Module):
         xy_obs, mask = self._tensor(xy_obs), self._tensor(mask, torch.bool)
         B, N = mask.shape
         dxy_n = normalize(to_relative(xy_obs), stats)
+        dt = _compute_dtype(cfg)
         if cfg.encoder == "attn":
-            return self._bridge(p, attn_encode(p["enc"], cfg, xy_obs, dxy_n, mask, drop, train))
+            return self._bridge(p, attn_encode(p["enc"], cfg, xy_obs, dxy_n, mask, drop, train,
+                                               compute_dtype=dt))
+        pe = _round_coder(p["enc"], dt)
 
         def body(carry, dxy_t, xy_t):
-            return _step(p["enc"], cfg, carry, dxy_t, xy_t, mask, drop, train=train)
+            return _step(pe, cfg, carry, dxy_t, xy_t, mask, drop, train=train)
 
         body = maybe_remat(cfg, body)
         carry = init_carry((B, N), cfg.hidden_dim, self.device)
@@ -204,10 +232,11 @@ class Forecaster(nn.Module):
         cfg, p = self.cfg, self.params()
         xy_fut, dxy_fut_n = self._tensor(xy_fut), self._tensor(dxy_fut_n)
         mask = self._tensor(mask, torch.bool)
+        pd = _round_coder(p["dec"], _compute_dtype(cfg))
 
         def body(carry, dxy_t, xy_t):
             out = self._head(p, carry.h)
-            return _step(p["dec"], cfg, carry, dxy_t, xy_t, mask, drop, train=True), out
+            return _step(pd, cfg, carry, dxy_t, xy_t, mask, drop, train=True), out
 
         body = maybe_remat(cfg, body)
         outs = []
@@ -278,12 +307,13 @@ class Forecaster(nn.Module):
             B, N = mask.shape
             if cfg.head == "gmm" and stream is None:
                 stream = self._rollout_stream(B, N, generator)
+            pd = _round_coder(p["dec"], _compute_dtype(cfg))
 
             def body(carry, xy, gum_t, nrm_t):
                 out = self._head(p, carry.h)
                 dxy_n = gmm.sample_from(out, gum_t, nrm_t) if cfg.head == "gmm" else out
                 xy = xy + denormalize(dxy_n, stats)
-                return _step(p["dec"], cfg, carry, dxy_n, xy, mask, train=train), xy
+                return _step(pd, cfg, carry, dxy_n, xy, mask, train=train), xy
 
             if remat:
                 body = maybe_remat(cfg, body)
@@ -366,11 +396,12 @@ class Forecaster(nn.Module):
         xy, mask_m = tile(xy_obs[:, :, -1]), tile(mask)
         comp = torch.arange(M, device=self.device).repeat_interleave(B)
         pick = comp[:, None, None, None].expand(M * B, N, 1, 2)
+        pd = _round_coder(p["dec"], _compute_dtype(cfg))
         outs = []
         for _ in range(self.pred_len):
             dxy_n = torch.gather(self._head(p, carry.h).mu, 2, pick)[:, :, 0]
             xy = xy + denormalize(dxy_n, stats)
-            carry = _step(p["dec"], cfg, carry, dxy_n, xy, mask_m)
+            carry = _step(pd, cfg, carry, dxy_n, xy, mask_m)
             outs.append(xy)
         traj = torch.stack(outs, dim=2)
         return traj.reshape((M, B) + traj.shape[1:])
@@ -427,7 +458,9 @@ class Forecaster(nn.Module):
         return (best * w).sum() / torch.clamp_min(w.sum(), 1.0)
 
     def _decode_fused(self, carry: Carry, xy_last, mask, stats: NormStats, stream):
-        """The whole rollout in one ``fused_decode`` launch -> (Bk, N, T, 2)."""
+        """The whole rollout in one ``fused_decode`` launch -> (Bk, N, T, 2),
+        in float32 whatever ``cfg.dtype`` (the JAX package passes its fused
+        decoder no dtype)."""
         cfg, p = self.cfg, self.params()
         assert cfg.cell == "gru" and cfg.social and cfg.head == "gmm", (
             "fused decoder covers the flagship GRU+social+GMM configuration"

@@ -2,7 +2,9 @@
 of ``mmtraj/models/gat.py``).
 
 Self-loops are added for valid agents, so an isolated pedestrian attends to
-itself; padded rows of the output are zero.
+itself; padded rows of the output are zero.  Under ``dtype=torch.bfloat16``
+only the input h is rounded to bf16; the weights, the attend chain and every
+kernel stay float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,18 +51,20 @@ def use_attend_kernel(attend_kernel: str, use_pallas: bool, n: int, train: bool,
 
 
 def gat_apply(p: Params, h: torch.Tensor, adj: torch.Tensor, mask: torch.Tensor,
-              num_heads: int, use_pallas: bool = False, attend_kernel: str = "auto",
+              num_heads: int, dtype=None, use_pallas: bool = False, attend_kernel: str = "auto",
               train: bool = False) -> torch.Tensor:
     """h (B, N, D), adj (B, N, N) bool, mask (B, N) bool -> (B, N, dout).
 
     ``use_pallas`` runs the whole layer through ``fused_gat``; otherwise the
     projections are plain products and the attend chain goes through the
-    ``fused_attend.attend`` kernel where ``use_attend_kernel`` says so."""
+    ``fused_attend.attend`` kernel where ``use_attend_kernel`` says so.
+    ``dtype``: h rounded to it (and held as float32) for every route."""
     N = h.shape[-2]
     eye = torch.eye(N, dtype=torch.bool, device=h.device)
     attend = (adj | (eye & mask[:, None, :] & mask[:, :, None])).to(torch.float32)
+    hin = h if dtype is None else h.to(dtype).float()
     if use_attend_kernel(attend_kernel, use_pallas, N, train, h.is_cuda):
-        v = h @ p["wv"]
+        v = hin @ p["wv"]
         s_src = v @ fused_gat._block_diag(p["a_src"])
         s_dst = v @ fused_gat._block_diag(p["a_dst"])
         dh = p["wv"].shape[1] // num_heads
@@ -69,5 +73,5 @@ def gat_apply(p: Params, h: torch.Tensor, adj: torch.Tensor, mask: torch.Tensor,
         out = agg @ p["wo"] + p["bo"]
     else:
         fn = fused_gat.fused_gat if use_pallas else fused_gat.gat_math
-        out = fn(h, attend, p["wv"], p["a_src"], p["a_dst"], p["wo"], p["bo"], num_heads)
+        out = fn(hin, attend, p["wv"], p["a_src"], p["a_dst"], p["wo"], p["bo"], num_heads)
     return torch.where(mask[..., None], out, 0.0)

@@ -4,13 +4,23 @@ Parameters are plain dicts of tensors in the JAX ``(in, out)`` orientation:
 ``dense`` computes ``x @ w + b``.  ``maybe_remat`` checkpoints a time step's
 body (or an attention layer) for the backward pass under the JAX package's
 three remat policies, as its ``jax.checkpoint`` does.
+
+``dtype=torch.bfloat16`` (``ModelConfig.dtype="bfloat16"``) is the JAX
+package's ``jnp.dot(x.astype(bf16), w.astype(bf16),
+preferred_element_type=jnp.float32)``: both operands rounded to bf16, the
+product accumulated and returned in float32 (``matmul``).  The product of two
+bf16 values is exact in float32, so the operands are rounded and held as
+float32 and the product runs as a float32 ``mm``; autocast, or a product of
+bf16 tensors, would round the output to bf16 too.  The backward is JAX's
+transpose: each operand's gradient is computed in float32 and rounded to
+bf16 at every product.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
@@ -77,19 +87,78 @@ def dense_init(generator: torch.Generator, din: int, dout: int) -> Params:
             "b": torch.zeros(dout, device=generator.device)}
 
 
-def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"] + p["b"]
+class _RoundOnce(torch.autograd.Function):
+    """``w`` rounded to bf16 and held as float32; the gradient passes through."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return w.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _RoundGradient(torch.autograd.Function):
+    """The identity, with its gradient rounded to bf16: the transpose of the
+    JAX package's ``w.astype(bf16)`` at one use of ``w``."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).float()
+
+
+class Bf16Weight(NamedTuple):
+    """A weight rounded to bf16 once for a forward call (``bf16_weight``),
+    held as float32, for the products of every time step.  Each product
+    rounds its own gradient, as the JAX package's cast inside the step
+    does, and the steps' gradients add up in float32; rounding once and
+    differentiating the plain cast would round their sum instead."""
+
+    value: torch.Tensor
+
+
+def bf16_weight(w: torch.Tensor) -> Bf16Weight:
+    return Bf16Weight(_RoundOnce.apply(w))
+
+
+def matmul(x: torch.Tensor, w, dtype=None) -> torch.Tensor:
+    """``x @ w`` in float32; under ``dtype=torch.bfloat16`` with both operands
+    rounded to bf16 first (see the module docstring).  ``x`` may come in as a
+    bf16 tensor already, where one rounded activation feeds several products
+    (the JAX package's single ``x.astype(bf16)``); ``w`` may be a
+    ``Bf16Weight``."""
+    if dtype is None:
+        return x @ w
+    if dtype != torch.bfloat16:
+        raise ValueError(f"compute dtype {dtype} is not bfloat16 or None (float32)")
+    xb = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+    if isinstance(w, Bf16Weight):
+        w = _RoundGradient.apply(w.value) if w.value.requires_grad else w.value
+    else:
+        w = w.to(torch.bfloat16).float()
+    return xb.float() @ w
+
+
+def dense(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``x @ w + b``; ``dtype`` rounds the product's operands (``matmul``),
+    the bias is added in float32."""
+    return matmul(x, p["w"], dtype) + p["b"]
 
 
 def mlp_init(generator: torch.Generator, dims) -> Params:
     return {f"l{i}": dense_init(generator, dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """Dense layers ``l0, l1, ...`` with a ReLU between them, none after the last."""
     n = len(p)
     for i in range(n):
-        x = dense(p[f"l{i}"], x)
+        x = dense(p[f"l{i}"], x, dtype)
         if i < n - 1:
             x = torch.relu(x)
     return x

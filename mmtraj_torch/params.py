@@ -52,8 +52,8 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown encoder {cfg.encoder!r}; choose 'rnn' or 'attn'")
     if cfg.cell not in ("gru", "lstm"):
         raise ValueError(f"unknown cell {cfg.cell!r}; choose 'gru' or 'lstm'")
-    if cfg.dtype != "float32":
-        raise not_ported(f"dtype={cfg.dtype!r}", "item 3, bf16")
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown dtype {cfg.dtype!r}; choose 'float32' or 'bfloat16'")
     if cfg.head not in ("gmm", "deterministic"):
         raise ValueError(f"unknown head {cfg.head!r}")
 

@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from mmtraj_torch import checkpoint
 from mmtraj_torch.config import Config
 from mmtraj_torch.data.collate import WindowDataset
 from mmtraj_torch.data.pipeline import DeviceDataset
@@ -45,7 +46,7 @@ from mmtraj_torch.data.transforms import NormStats, augment_windows, compute_nor
 from mmtraj_torch.evaluate import _device_stats, evaluate
 from mmtraj_torch.models.forecaster import Forecaster, dropout_masks
 from mmtraj_torch.ops import _build, launch_counters
-from mmtraj_torch.params import State, load_npz, not_ported, save_npz
+from mmtraj_torch.params import State, not_ported, save_npz
 from mmtraj_torch.utils.logging import MetricsLogger
 
 ITEM6 = "item 6, scale-out"
@@ -513,11 +514,11 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
     ema_path = os.path.join(cfg.train.out_dir, "checkpoint_ema.npz") if cfg.train.out_dir else None
     start_step, opt_leaves, ema_state = 0, None, None
     if resume and ckpt_path and os.path.exists(ckpt_path):
-        ck = load_npz(ckpt_path)
+        ck = checkpoint.load(ckpt_path)
         model = Forecaster(cfg.model, obs_len, pred_len, device=device, state=ck.state)
         stats, start_step, opt_leaves = ck.stats, ck.step, ck.opt_leaves
         if cfg.train.ema_decay > 0 and start_step > 0 and os.path.exists(ema_path):
-            ema_state = load_npz(ema_path).state
+            ema_state = checkpoint.load(ema_path).state
     else:
         model = Forecaster(cfg.model, obs_len, pred_len, device=device,
                            generator=torch.Generator().manual_seed(cfg.train.seed))

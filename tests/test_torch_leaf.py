@@ -136,13 +136,6 @@ def test_attend_dispatch_rule():
         use_attend_kernel("fast", False, 64, False, on_cuda=False)
 
 
-@pytest.mark.parametrize("change", [dict(dtype="bfloat16")])
-def test_unsupported_config_raises(change):
-    cfg = dataclasses.replace(ModelConfig(hidden_dim=16, embed_dim=16, num_heads=2), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Forecaster(cfg, 8, 12, device="cpu", generator=torch.Generator())
-
-
 def test_unknown_encoder_raises_value_error():
     cfg = ModelConfig(hidden_dim=16, embed_dim=16, num_heads=2, encoder="transformer")
     with pytest.raises(ValueError, match="unknown encoder"):

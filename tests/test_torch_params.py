@@ -97,6 +97,7 @@ def _port_files():
 def test_port_imports_neither_jax_nor_mmtraj():
     files = _port_files()
     assert len(files) > 15
+    assert {"checkpoint.py", "interop.py"} <= {p.name for p in files}
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
