@@ -101,7 +101,20 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    as ``.pt``, converted to ``.npz`` by ``python -m mmtraj_torch.cli
    convert``, both scored by ``cli eval`` with identical lines, and ``cli
    eval --dtype bfloat16`` of route A and plain checkpoints on the first
-   ``EVAL_SUB`` windows of univ, within ``EVAL_ADE_TOL``.
+   ``EVAL_SUB`` windows of univ, within ``EVAL_ADE_TOL``;
+13. (run before 7's line) export and serving: ``export_predictor`` of route
+   A, route B and plain at B = 25 and of route A at ``SERVE_B`` = 64, each
+   loaded artifact's graph holding its ``mmtraj.*`` custom ops (route A 8
+   ``fused_gat`` + 1 ``fused_decode``, route B 20 ``attend``), its launches
+   a call exact, and its output on one stream within ``GRAPH_TOL`` of the
+   live ``rollout_k``; routes A and B held to plain under ``ROLLOUT_TOL``
+   and ``MAX_DIVERGED``; ``load_predictor``'s same seed reproducing and
+   another differing; a (3, 40) request through ``PredictServer`` equal to
+   the manual padding's slice; ``python -m mmtraj_torch.cli export`` of a
+   route-A checkpoint, then ``cli serve --aggregate 8`` as a subprocess
+   over 12 lines of which one is malformed and gets its error line; and
+   ``serve_bench``'s JSON line (route A, B = 25), printed on a line of its
+   own.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -111,11 +124,13 @@ exits 1 before doing anything.  Usage: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -138,6 +153,7 @@ ROLLOUT_TOL = 1e-3  # meters, on valid agents
 MAX_DIVERGED = 0.01  # share of (window, sample) rollouts allowed past ROLLOUT_TOL
 EVAL_DATA = Path(__file__).resolve().parent / "data" / "synthetic3000"
 EVAL_SUB = 300  # windows of the invariance and protocol checks
+SERVE_B = 64  # phase 13: the second artifact's batch (the first's is B)
 EVAL_ADE_TOL = 1e-2  # meters, route A against plain on the whole scene
 EVAL_NLL_RTOL = 1e-5
 EVAL_INVARIANCE_RTOL = 1e-5
@@ -1177,6 +1193,153 @@ def bf16_phase(torch, dev, card, cfg, plain_cfg, route_a, route_b, state, stats,
     log("bf16 " + json.dumps(summary))
 
 
+def serving_phase(torch, dev, card, cfg, routes, state, stats, xy_obs, mask, counted,
+                  zero) -> None:
+    """Phase 13: export and serving at config 4's full width, through the
+    entry points ``export_predictor``, ``load_predictor``, ``PredictServer``,
+    ``python -m mmtraj_torch.cli export``/``serve`` and ``serve_bench``.
+    ``routes``: name -> (model config, launches of one ``rollout_k`` call)."""
+    from mmtraj_torch.benchmarks import serve_bench
+    from mmtraj_torch.benchmarks.bench import bench_inputs
+    from mmtraj_torch.data.transforms import NormStats
+    from mmtraj_torch.export import (draw_stream, export_predictor, kernel_nodes, load_exported,
+                                     load_predictor)
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.params import save_npz
+    from mmtraj_torch.serve import PredictServer
+
+    M = cfg.model.num_mixtures
+    root = Path(__file__).resolve().parent
+    rng = np.random.default_rng(2)
+    sizes = [int(n) for n in rng.integers(5, 60, size=11)]
+    lines = [json.dumps({"xy": xy_obs[j % B, :n].tolist(), "seed": 4,
+                         "encoding": "b64-npy" if j % 2 else "json"})
+             for j, n in enumerate(sizes)]
+    lines.insert(5, "{not json")
+
+    def cli_round_trip(tmp):
+        """``python -m mmtraj_torch.cli export`` of a route-A checkpoint, then
+        ``cli serve --aggregate 8`` over ``lines``, each a fresh process ->
+        (export seconds, serve seconds, serve's run)."""
+        ckpt = str(tmp / "route_a.npz")
+        save_npz(ckpt, state, NormStats(*(t.cpu().numpy() for t in stats)),
+                 cfg.replace(model=routes["A"][0]))
+        art = str(tmp / "cli.pt2")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "mmtraj_torch.cli", "export", "--ckpt", ckpt,
+                              "--out", art, "--batch", "8", "--k", str(K), "--device", dev.type],
+                             capture_output=True, text=True, timeout=300, cwd=root)
+        check(run.returncode == 0, f"cli export failed:\n{run.stdout}\n{run.stderr}")
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "mmtraj_torch.cli", "serve", "--artifact", art,
+                              "--aggregate", "8", "--window-ms", "50"],
+                             input="\n".join(lines) + "\n", capture_output=True, text=True,
+                             timeout=300, cwd=root)
+        return t_export, time.perf_counter() - t0, run
+
+    nodes = {"A": {"mmtraj.fused_gat.default": TO, "mmtraj.fused_decode.default": 1},
+             "B": {"mmtraj.attend.default": TO + TP}, "plain": {}}
+    inputs = {B: (xy_obs, mask),
+              SERVE_B: bench_inputs(np.random.default_rng(1), SERVE_B, N, TO, dev)}
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_serve_", dir=root))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            # The CLI's two processes run beside the in-process exports below.
+            cli_job = pool.submit(cli_round_trip, tmp)
+
+            # Each artifact against the live rollout_k on one stream, with its launches.
+            outs = {}
+            for name, batch in (("A", B), ("B", B), ("plain", B), ("A", SERVE_B)):
+                model_cfg, per_call = routes[name]
+                model = Forecaster(model_cfg, TO, TP, device=dev, state=state)
+                path = str(tmp / f"{name}{batch}.pt2")
+                t0 = time.perf_counter()
+                export_predictor(path, model, None, stats, k=K, batch=batch, n_agents=N)
+                t_export = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                program, meta = load_exported(path)
+                call = program.module()
+                t_load = time.perf_counter() - t0
+                check(kernel_nodes(program) == nodes[name],
+                      f"artifact {name}{batch}: graph nodes {kernel_nodes(program)}")
+                check(torch.device(meta["device"]).type == dev.type,
+                      f"artifact {name}{batch}: device {meta['device']}")
+                xy_b, m_b = inputs[batch]
+                gumbel, normal = draw_stream(K * batch, TP, N, M, 5, dev)
+                out, counts = counted(lambda: call(xy_b, m_b, gumbel, normal))
+                check(counts == {**zero, **per_call},
+                      f"artifact {name}{batch}: launches {counts}, expected {per_call}")
+                live = model.rollout_k(xy_b, m_b, stats, K, stream=(gumbel, normal))
+                check(out.shape == (K, batch, N, TP, 2) and bool(torch.isfinite(out).all()),
+                      f"artifact {name}{batch}: shape {tuple(out.shape)} or not finite")
+                err = torch.where(m_b[None, :, :, None, None], (out - live).abs(),
+                                  0.0).max().item()
+                check(err <= GRAPH_TOL, f"artifact {name}{batch} vs live rollout_k: {err} m")
+                outs[name, batch] = out
+                log(f"artifact {name} B={batch}: export {t_export:.2f} s, load {t_load:.2f} s, "
+                    f"{os.path.getsize(path) / 1e6:.3f} MB; graph {kernel_nodes(program)}; "
+                    f"launches a call {counts}; max abs err vs live rollout_k {err:.3e} m")
+            for name in ("A", "B"):
+                d = torch.where(mask[None, :, :, None, None],
+                                (outs[name, B] - outs["plain", B]).abs(), 0.0)
+                per = d.flatten(2).amax(2)
+                n_bad = int((per > ROLLOUT_TOL).sum())
+                check(n_bad <= MAX_DIVERGED * K * B,
+                      f"artifact {name}: {n_bad} of {K * B} rollouts past {ROLLOUT_TOL} m of plain")
+                log(f"artifact {name} vs plain artifact: {n_bad} of {K * B} rollouts past "
+                    f"{ROLLOUT_TOL} m, max abs err {per[per <= ROLLOUT_TOL].max().item():.3e} m")
+
+            # The seed: the same reproduces, another differs.
+            a_path = str(tmp / f"A{B}.pt2")
+            predict = load_predictor(a_path)
+            (a, b, c), counts = counted(lambda: [predict(xy_obs, mask, s) for s in (3, 3, 4)])
+            check(counts == {**zero, "fused_gat": 3 * TO, "fused_decode": 3},
+                  f"load_predictor: launches {counts}")
+            check(torch.equal(a, b), "load_predictor: the same seed did not reproduce")
+            check(not torch.allclose(a[:, mask], c[:, mask]),
+                  "load_predictor: seeds 3 and 4 agree")
+
+            # A (3, 40) request through the server equals the manual padding's slice.
+            server = PredictServer(a_path)
+            xy_np, m_np = xy_obs.cpu().numpy()[:3, :40], mask.cpu().numpy()[:3, :40]
+            got, counts = counted(lambda: server.predict(xy_np, m_np, seed=11))
+            check(counts == {**zero, "fused_gat": TO, "fused_decode": 1},
+                  f"PredictServer: launches {counts}")
+            xy_p = np.zeros((B, N, TO, 2), np.float32)
+            xy_p[:3, :40] = xy_np
+            m_p = np.zeros((B, N), bool)
+            m_p[:3, :40] = m_np
+            want = predict(xy_p, m_p, 11).cpu().numpy()[:, :3, :40]
+            check(got.shape == (K, 3, 40, TP, 2) and np.array_equal(got, want),
+                  f"PredictServer (3, 40): {got.shape}, max diff {np.abs(got - want).max()}")
+
+            # The CLI: one error line for the malformed request, the rest answered.
+            t_export, t_serve, run = cli_job.result()
+        check(run.returncode == 0, f"cli serve failed:\n{run.stderr}")
+        answers = [json.loads(x) for x in run.stdout.strip().splitlines()]
+        check(len(answers) == 12 and "JSONDecodeError" in answers[5].get("error", ""),
+              f"cli serve: {len(answers)} answers, line 6 {str(answers[5])[:200]}")
+        for ans, n in zip(answers[:5] + answers[6:], sizes):
+            shape = tuple(ans.get("shape") or np.asarray(ans.get("pred")).shape)
+            check(shape == (K, n, TP, 2), f"cli serve: answer shape {shape} for {n} agents")
+        check("served 11 request(s)" in run.stderr, f"cli serve stderr: {run.stderr[-500:]}")
+        log(f"cli export {t_export:.2f} s, cli serve of 12 lines (one malformed) {t_serve:.2f} s "
+            f"(each a fresh process, beside the exports above): " + " | ".join(
+                x for x in run.stderr.splitlines() if x.startswith(("serving", "aggregated"))))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # serve_bench: cold start, latency and sustained rate of route A at B = 25.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_bench.main(["--batches", str(B), "--k", str(K), "--iters", "10", "--scan-iters",
+                          "20", "--route", "A", "--device", dev.type])
+    row = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(row["card"] == card and len(row["batches"]) == 1, f"serve_bench line {row}")
+    print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1566,6 +1729,12 @@ def main() -> int:
     bf16_phase(torch, dev, card, cfg, plain_cfg, route_a, route_b, state, stats, xy_obs, mask, gt,
                counted, dict.fromkeys(counters, 0))
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. export and serving ------------------------------------------------------------
+    t0 = time.perf_counter()
+    serving_phase(torch, dev, card, cfg, bench_routes, state, stats, xy_obs, mask, counted,
+                  dict.fromkeys(counters, 0))
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

@@ -2,10 +2,14 @@
 Ported: ``train`` (single device, resident data; the flags below),
 ``eval`` (scores a checkpoint on the held-out scene and prints the JAX
 package's eval line), ``autotune-eval`` (the fastest eval batch on this
-card) and ``convert`` (a checkpoint between the .npz, .pt and .h5 formats,
-and to and from Keras's legacy ``save_weights`` layout).  ``eval`` and
-``autotune-eval`` read any format ``mmtraj_torch.checkpoint.load`` reads;
-an Orbax directory is converted with the JAX package's ``python -m
+card), ``convert`` (a checkpoint between the .npz, .pt and .h5 formats,
+and to and from Keras's legacy ``save_weights`` layout), ``export`` (a
+frozen K-sample predictor as a ``torch.export`` .pt2 artifact), ``serve``
+(JSON-lines requests on stdin answered from artifacts, protocol in
+``mmtraj_torch/serve.py``) and ``predict`` (K sampled futures for every
+window of the held-out scene into an .npz).  ``eval``, ``autotune-eval``,
+``export`` and ``predict`` read any format ``mmtraj_torch.checkpoint.load``
+reads; an Orbax directory is converted with the JAX package's ``python -m
 mmtraj.cli convert`` first.
 
 Usage:
@@ -18,6 +22,9 @@ Usage:
   python -m mmtraj_torch.cli convert --src runs/x/checkpoint.npz --dst runs/x/model.pt
   python -m mmtraj_torch.cli convert --keras --src runs/x/checkpoint.npz --dst keras.h5
   python -m mmtraj_torch.cli convert --keras --src keras.h5 --like x.npz --dst imported.npz
+  python -m mmtraj_torch.cli export --ckpt runs/x/checkpoint.npz --out runs/x/predictor.pt2
+  python -m mmtraj_torch.cli serve --artifact runs/x/predictor.pt2 --aggregate 8 < requests.jsonl
+  python -m mmtraj_torch.cli predict --ckpt runs/x/checkpoint.npz --out predictions.npz
 
 It runs on the card unless ``--device cpu`` is given.
 """
@@ -154,6 +161,55 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("--like", default=None,
                     help="with --keras and a Keras --src: the checkpoint whose config and norm "
                          "stats the Keras weights belong to")
+
+    xp = sub.add_parser("export", help="export a frozen K-sample predictor (torch.export .pt2)")
+    xp.add_argument("--ckpt", required=True)
+    xp.add_argument("--out", required=True, help="output .pt2 file")
+    xp.add_argument("--batch", type=int, default=64)
+    xp.add_argument("--k", type=int, default=None)
+    xp.add_argument("--device", default="cuda",
+                    help="the device the artifact runs on (default cuda)")
+    xp.add_argument("--oversample", type=int, default=1,
+                    help="bake sample-and-select into the artifact (draw R*K, return the K "
+                         "most diverse per agent)")
+
+    sv = sub.add_parser("serve", help="serve exported predictors: JSON-lines requests on stdin "
+                                      "-> K-sample rollouts on stdout (mmtraj_torch/serve.py)")
+    sv.add_argument("--artifact", required=True, nargs="+",
+                    help="artifact(s) written by `export`; several = graduated capacities, "
+                         "each request routed to the smallest artifact that holds it")
+    sv.add_argument("--aggregate", type=int, default=1,
+                    help="micro-batch up to N consecutive single-window same-seed requests "
+                         "into one device call (semantics = client-side batching)")
+    sv.add_argument("--window-ms", type=float, default=5.0,
+                    help="max wait for the first request of a group to gather company "
+                         "(only with --aggregate > 1)")
+    sv.add_argument("--stats-every", type=int, default=0,
+                    help="log one operational line (ok/err counts, qps, mean group size) to "
+                         "stderr every N answered requests")
+    sv.add_argument("--no-pipeline-encode", action="store_true",
+                    help="serialize the fetch and encoding with device calls (debug escape "
+                         "hatch; default overlaps them on a writer thread, same bytes/order)")
+
+    rp = sub.add_parser("predict", help="sample K futures for a scene's windows -> .npz")
+    rp.add_argument("--ckpt", required=True)
+    rp.add_argument("--data-dir", default=None, help="annotation dir ({scene}.txt files)")
+    rp.add_argument("--scene", default=None, choices=SCENES, help="held-out scene")
+    rp.add_argument("--k", type=int, default=None, help="K samples")
+    rp.add_argument("--obs-len", type=int, default=None)
+    rp.add_argument("--pred-len", type=int, default=None)
+    rp.add_argument("--n-max", type=int, default=None, help="padded agent capacity")
+    rp.add_argument("--out", default="predictions.npz")
+    rp.add_argument("--seed", type=int, default=0)
+    rp.add_argument("--oversample", type=int, default=1,
+                    help="sample R=oversample*K futures and keep the K most endpoint-diverse "
+                         "per agent (see eval --oversample)")
+    rp.add_argument("--batch-size", type=int, default=None,
+                    help="default: eval's (evaluate.vmem_friendly_batch); the output does not "
+                         "depend on it")
+    rp.add_argument("--auto-n-max", action="store_true",
+                    help="raise n_max to the densest window so no agent is dropped")
+    rp.add_argument("--device", default="cuda", help="torch device (default cuda)")
     return ap
 
 
@@ -262,6 +318,83 @@ def _convert(args, parser) -> int:
     return 0
 
 
+def _export(args, parser) -> int:
+    from mmtraj_torch import checkpoint
+    from mmtraj_torch.export import export_predictor
+    from mmtraj_torch.models.forecaster import Forecaster
+
+    ck = checkpoint.load(args.ckpt)
+    cfg = ck.config
+    if args.oversample > 1 and cfg.model.head != "gmm":
+        # A deterministic head rolls out K*R identical trajectories; selecting
+        # among them would bake duplicates into the artifact.
+        parser.error("--oversample requires the sampling (GMM) head")
+    model = Forecaster(cfg.model, cfg.data.obs_len, cfg.data.pred_len, device=args.device,
+                       state=ck.state)
+    k = args.k or cfg.train.k_samples
+    export_predictor(args.out, model, None, ck.stats, k=k, batch=args.batch,
+                     n_agents=cfg.data.n_max, oversample=args.oversample)
+    os_tag = f", oversample={args.oversample}" if args.oversample > 1 else ""
+    print(f"exported {args.ckpt} -> {args.out} "
+          f"(K={k}, batch={args.batch}, N={cfg.data.n_max}{os_tag})")
+    return 0
+
+
+def _serve(args) -> int:
+    from mmtraj_torch.serve import serve_lines
+
+    served = serve_lines(args.artifact, sys.stdin, sys.stdout, aggregate=args.aggregate,
+                         window_ms=args.window_ms, stats_every=args.stats_every,
+                         pipeline_encode=not args.no_pipeline_encode)
+    print(f"served {served} request(s)", file=sys.stderr)
+    return 0
+
+
+def _predict(args, parser) -> int:
+    """K sampled futures for every window of the held-out scene; window w's
+    stream comes from (seed, w) alone (``evaluate.window_stream``), so the
+    output does not depend on ``--batch-size``."""
+    import numpy as np
+    import torch
+
+    from mmtraj_torch import checkpoint
+    from mmtraj_torch import evaluate as ev
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.models.sampling import diverse_select
+
+    ck = checkpoint.load(args.ckpt)
+    cfg = _apply_overrides(ck.config, args)
+    if args.oversample > 1 and cfg.model.head != "gmm":
+        parser.error("--oversample requires the sampling (GMM) head")
+    ds = _load_eval_dataset(cfg, args.auto_n_max)
+    model = Forecaster(cfg.model, cfg.data.obs_len, cfg.data.pred_len, device=args.device,
+                       state=ck.state)
+    k, to = cfg.train.k_samples, cfg.data.obs_len
+    r = k * args.oversample
+    bs = args.batch_size or ev.vmem_friendly_batch(
+        r, ds.n_max, bytes_per_elem=ev._model_bytes_per_elem(model))
+    stats = ev._device_stats(ck.stats, model.device)
+    preds = []
+    for s in range(0, ds.n_windows, bs):
+        idx = np.arange(s, min(s + bs, ds.n_windows))
+        xy, mask = ds.batch(idx)
+        obs = torch.as_tensor(xy[:, :, :to], device=model.device)
+        stream = (ev.window_stream(model, (args.seed, 0, 0), idx, r, ds.n_max)
+                  if cfg.model.head == "gmm" else None)
+        p = model.rollout_k(obs, torch.as_tensor(mask, device=model.device), stats, r,
+                            stream=stream)
+        if args.oversample > 1:
+            p = diverse_select(p, k)
+        preds.append(p.cpu().numpy())
+    preds_np = np.concatenate(preds, axis=1)  # (K, W, N, Tp, 2)
+    np.savez(args.out, predictions=preds_np, mask=ds.mask, obs_len=to,
+             pred_len=cfg.data.pred_len, scene=cfg.data.scene, k=k,
+             **({"oversample": args.oversample} if args.oversample > 1 else {}))
+    print(f"wrote {args.out}: predictions {preds_np.shape} "
+          f"(K={k}, windows={ds.n_windows}, scene={cfg.data.scene})")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -271,6 +404,12 @@ def main(argv=None) -> int:
         return _autotune(args)
     if args.cmd == "convert":
         return _convert(args, parser)
+    if args.cmd == "export":
+        return _export(args, parser)
+    if args.cmd == "serve":
+        return _serve(args)
+    if args.cmd == "predict":
+        return _predict(args, parser)
     if args.data_parallel:
         raise not_ported("eval --data-parallel", "item 6, scale-out")
     from mmtraj_torch import checkpoint

@@ -126,8 +126,10 @@ def dropout_masks(cfg: ModelConfig, B: int, N: int, generator: torch.Generator,
 
 
 def _grad_mode(train: bool):
-    """Recording as the caller has it for a differentiated path, else none."""
-    return contextlib.nullcontext() if train else torch.no_grad()
+    """Recording as the caller has it for a differentiated path, else none
+    (no context where none is recorded already, so that a traced program
+    holds no grad-mode switches)."""
+    return contextlib.nullcontext() if train or not torch.is_grad_enabled() else torch.no_grad()
 
 
 class _Params(nn.Module):

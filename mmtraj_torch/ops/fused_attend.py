@@ -25,6 +25,13 @@ from the same kernel body (``csrc/attend_block.cuh``): a block takes a pair
 of graphs' 16-row slabs, four warps a graph, each graph with its own edge
 bit masks and tensor-core chains; in the last block of an odd B the second
 graph loads and stores nothing.
+
+Both kernels are ``torch.library`` custom ops, ``mmtraj::attend`` and
+``mmtraj::attend_packed``, registered when this module is imported (nothing
+is built or loaded then): the CPU implementation is ``attend_math``, the
+CUDA one launches the kernel, and the fake one gives the output's shape, so
+``torch.export`` keeps each call as one node of its graph.  The wrappers
+call the ops on every device.
 """
 
 from __future__ import annotations
@@ -33,10 +40,10 @@ import ctypes
 
 import torch
 
-from mmtraj_torch.models.layers import NEG_INF
 from mmtraj_torch.ops import _build
 
 MAX_N = 256  # the widest graph the kernels take (four edge-mask words a lane)
+NEG_INF = -1e9  # the masked logit, as ``models.layers.NEG_INF``
 
 
 def attend_math(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
@@ -84,24 +91,61 @@ def _launch(name: str, v, s_src, s_dst, att, num_heads: int) -> torch.Tensor:
     return out
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+@torch.library.custom_op("mmtraj::attend", mutates_args=(), device_types="cpu")
+def _attend_op(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor, att: torch.Tensor,
+               num_heads: int) -> torch.Tensor:
+    """``mmtraj::attend`` on the CPU: the plain version."""
+    return attend_math(v, s_src, s_dst, att, num_heads)
+
+
+@_attend_op.register_kernel("cuda")
+def _attend_cuda(v, s_src, s_dst, att, num_heads):
+    _check(v, s_src, s_dst, att, num_heads)
+    out = _launch("attend", v, s_src, s_dst, att, num_heads)
+    attend.launches += 1
+    return out
+
+
+@torch.library.custom_op("mmtraj::attend_packed", mutates_args=(), device_types="cpu")
+def _attend_packed_op(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+                      att: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``mmtraj::attend_packed`` on the CPU: the plain version."""
+    return attend_math(v, s_src, s_dst, att, num_heads)
+
+
+@_attend_packed_op.register_kernel("cuda")
+def _attend_packed_cuda(v, s_src, s_dst, att, num_heads):
+    _check(v, s_src, s_dst, att, num_heads)
+    out = _launch("attend_packed", v, s_src, s_dst, att, num_heads)
+    attend_packed.launches += 1
+    return out
+
+
+@_attend_op.register_fake
+def _attend_fake(v, s_src, s_dst, att, num_heads):
+    return torch.empty_like(v)
+
+
+_attend_packed_op.register_fake(_attend_fake)
+
+
 class _Attend(torch.autograd.Function):
-    """The attend kernel forward with the JAX package's backward: autograd of
-    ``attend_math`` for v, s_src and s_dst on the saved inputs
+    """``mmtraj::attend`` forward with the JAX package's backward: autograd
+    of ``attend_math`` for v, s_src and s_dst on the saved inputs
     (``mmtraj/ops/fused_attend.py:_bwd``); the 0/1 tile and ``num_heads``
     get none, as in JAX.  There is no backward kernel.  On CPU tensors the
-    forward is ``attend_math`` itself (the CPU tests drive the Function that
-    way)."""
+    op's forward is ``attend_math`` itself (the CPU tests drive the Function
+    that way)."""
 
     @staticmethod
     def forward(ctx, v, s_src, s_dst, att, num_heads):
         ctx.num_heads = num_heads
         ctx.save_for_backward(v, s_src, s_dst, att)
-        if not v.is_cuda:
-            return attend_math(v, s_src, s_dst, att, num_heads)
-        _check(v, s_src, s_dst, att, num_heads)
-        out = _launch("attend", v, s_src, s_dst, att, num_heads)
-        attend.launches += 1
-        return out
+        return torch.ops.mmtraj.attend(v, s_src, s_dst, att, num_heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -118,9 +162,9 @@ class _Attend(torch.autograd.Function):
 def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
            att: torch.Tensor, num_heads: int, group: int = 8,
            packed: bool = False) -> torch.Tensor:
-    """``attend_math`` through a Hopper kernel for CUDA tensors; a CPU tensor
-    takes ``attend_math`` itself.  ``att`` is the 0/1 attend tile.  The
-    unpacked kernel is differentiable (``_Attend``).
+    """``mmtraj::attend``: the Hopper kernel for CUDA tensors, ``attend_math``
+    for CPU tensors.  ``att`` is the 0/1 attend tile.  The unpacked kernel
+    is differentiable (``_Attend``, taken where a gradient is recorded).
 
     The signature and defaults are those of the JAX package's
     ``attend_pallas``.  ``packed=True`` launches the lane-packed kernel
@@ -132,27 +176,22 @@ def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
         raise ValueError("packed attend kernel needs an even group size")
     if packed:
         return attend_packed(v, s_src, s_dst, att, num_heads)
-    if not v.is_cuda:
-        return attend_math(v, s_src, s_dst, att, num_heads)
-    return _Attend.apply(v, s_src, s_dst, att, num_heads)
+    if _wants_grad(v, s_src, s_dst):
+        return _Attend.apply(v, s_src, s_dst, att, num_heads)
+    return torch.ops.mmtraj.attend(v, s_src, s_dst, att, num_heads)
 
 
 def attend_packed(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
                   att: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """``attend_math`` through the lane-packed Hopper kernel (a pair of
+    """``mmtraj::attend_packed``: the lane-packed Hopper kernel (a pair of
     graphs a block; an odd B leaves the last block's second graph idle) for
-    CUDA tensors; a CPU tensor takes ``attend_math`` itself.  It has no
-    backward (only the op sweep calls it) and raises on every device when
-    asked for a gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (v, s_src, s_dst)):
+    CUDA tensors, ``attend_math`` for CPU tensors.  It has no backward (only
+    the op sweep calls it) and raises on every device when asked for a
+    gradient."""
+    if _wants_grad(v, s_src, s_dst):
         raise ValueError("attend(packed=True) has no backward; call it under torch.no_grad() "
                          "or use the unpacked kernel")
-    if not v.is_cuda:
-        return attend_math(v, s_src, s_dst, att, num_heads)
-    _check(v, s_src, s_dst, att, num_heads)
-    out = _launch("attend_packed", v, s_src, s_dst, att, num_heads)
-    attend_packed.launches += 1
-    return out
+    return torch.ops.mmtraj.attend_packed(v, s_src, s_dst, att, num_heads)
 
 
 attend.launches = 0

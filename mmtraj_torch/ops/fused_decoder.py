@@ -25,6 +25,14 @@ so each weight fragment it loads feeds every slab.  The adjacency of each
 slab is a bit mask built from the positions in registers (no N x N tile).
 The kernel takes N a multiple of 8 up to 128, and any widths: K and columns
 are padded with zeros in the fragments.
+
+The kernel is the ``torch.library`` custom op ``mmtraj::fused_decode``,
+registered when this module is imported: ``reference_decode`` on the CPU,
+the kernel on CUDA, and a fake implementation for ``torch.export``.  An op's
+schema takes no dict, so the decoder's weights and the head go in as the
+fixed list ``WEIGHTS`` and the norm stats as one tensor of four.  The plain
+version writes the GRU and the softplus out, as the JAX package's
+``_step_math`` does, so that this module needs nothing of ``models``.
 """
 
 from __future__ import annotations
@@ -33,10 +41,12 @@ import ctypes
 
 import torch
 
-from mmtraj_torch.models.cells import Carry, cell_apply
-from mmtraj_torch.models.gmm import softplus
 from mmtraj_torch.ops import _build
 from mmtraj_torch.ops.fused_gat import gat_math
+
+# The op's weight list: the decoder step's parameters, then the permuted head.
+WEIGHTS = ("embed/w", "embed/b", "cell/wx", "cell/wh", "cell/b", "gat/wv", "gat/a_src",
+           "gat/a_dst", "gat/wo", "gat/bo", "head/w", "head/b")
 
 
 def permute_head(w: torch.Tensor, b: torch.Tensor, m: int):
@@ -64,6 +74,9 @@ def _step_math(h, xy, maskf, gum_t, nrm_t, p, head_w, head_b, stats4, num_heads:
     def pick(c):
         return torch.gather(raw[..., c * m:(c + 1) * m], -1, k)  # (B, N, 1)
 
+    def softplus(x):  # JAX's, with no switch to the identity at large x
+        return torch.log1p(torch.exp(-x.abs())) + x.clamp_min(0.0)
+
     mu_x, mu_y = pick(1), pick(2)
     s_x = softplus(pick(3)) + sigma_min
     s_y = softplus(pick(4)) + sigma_min
@@ -81,7 +94,14 @@ def _step_math(h, xy, maskf, gum_t, nrm_t, p, head_w, head_b, stats4, num_heads:
     attend = pairm * (1.0 - eye) * (d2 <= radius * radius).to(xy.dtype) + eye * pairm
 
     x_in = torch.relu(dxy_n @ p["embed"]["w"] + p["embed"]["b"])
-    h = cell_apply(p["cell"], "gru", x_in, Carry(h=h, c=None)).h
+    c = p["cell"]  # the fused-gate GRU, gate order (z, r, n)
+    xg = x_in @ c["wx"] + c["b"]
+    hg = h @ c["wh"]
+    hid = h.shape[-1]
+    z = torch.sigmoid(xg[..., :hid] + hg[..., :hid])
+    r = torch.sigmoid(xg[..., hid:2 * hid] + hg[..., hid:2 * hid])
+    n = torch.tanh(xg[..., 2 * hid:] + r * hg[..., 2 * hid:])
+    h = (1.0 - z) * n + z * h
     g = p["gat"]
     gat = gat_math(h, attend, g["wv"], g["a_src"], g["a_dst"], g["wo"], g["bo"], num_heads)
     return h + gat * maskf[..., None], xy
@@ -104,35 +124,53 @@ def reference_decode(h0, xy0, mask, gumbel, normal, params_dec, head_w, head_b, 
     return torch.stack(outs, dim=1)
 
 
-def fused_decode(h0, xy0, mask, gumbel, normal, params_dec, head_w, head_b, *,
-                 num_heads: int, num_mixtures: int, radius: float, sigma_min: float,
-                 rho_max: float, stats_mean, stats_std) -> torch.Tensor:
-    """``reference_decode`` through the Hopper kernel for CUDA tensors; a CPU
-    tensor takes ``reference_decode`` itself."""
+def _unflatten(weights):
+    """The op's weight list -> (params_dec, head_w, head_b)."""
+    w = dict(zip(WEIGHTS, weights))
+    dec = {}
+    for key in WEIGHTS[:-2]:
+        mod, leaf = key.split("/")
+        dec.setdefault(mod, {})[leaf] = w[key]
+    return dec, w["head/w"], w["head/b"]
+
+
+@torch.library.custom_op("mmtraj::fused_decode", mutates_args=(), device_types="cpu")
+def _fused_decode_op(h0: torch.Tensor, xy0: torch.Tensor, mask: torch.Tensor,
+                     gumbel: torch.Tensor, normal: torch.Tensor, weights: list[torch.Tensor],
+                     stats: torch.Tensor, num_heads: int, num_mixtures: int, radius: float,
+                     sigma_min: float, rho_max: float) -> torch.Tensor:
+    """``mmtraj::fused_decode`` on the CPU: the plain version."""
+    dec, head_w, head_b = _unflatten(weights)
+    return reference_decode(h0, xy0, mask, gumbel, normal, dec, head_w, head_b,
+                            num_heads=num_heads, num_mixtures=num_mixtures, radius=radius,
+                            sigma_min=sigma_min, rho_max=rho_max, stats_mean=stats[:2],
+                            stats_std=stats[2:])
+
+
+@_fused_decode_op.register_fake
+def _fused_decode_fake(h0, xy0, mask, gumbel, normal, weights, stats, num_heads, num_mixtures,
+                       radius, sigma_min, rho_max):
+    B, T, N, _ = normal.shape
+    return h0.new_empty((B, T, N, 2))
+
+
+@_fused_decode_op.register_kernel("cuda")
+def _fused_decode_cuda(h0, xy0, mask, gumbel, normal, weights, stats, num_heads, num_mixtures,
+                       radius, sigma_min, rho_max):
     B, N, Hd = h0.shape
     T = gumbel.shape[1]
     M = num_mixtures
-    assert radius > 0, "fused decoder requires a finite adjacency radius"
-    assert N in (8, 16, 32, 64, 128), (
-        f"fused decoder requires a lane-tileable agent count, got N={N}; "
-        "use the plain path (use_fused_decoder=False) for other shapes"
-    )
-    kw = dict(num_heads=num_heads, num_mixtures=M, radius=radius, sigma_min=sigma_min,
-              rho_max=rho_max, stats_mean=stats_mean, stats_std=stats_std)
-    if not h0.is_cuda:
-        return reference_decode(h0, xy0, mask, gumbel, normal, params_dec, head_w,
-                                head_b, **kw)
-    de, dc, dg = params_dec["embed"], params_dec["cell"], params_dec["gat"]
+    dec, head_w, head_b = _unflatten(weights)
+    de, dc, dg = dec["embed"], dec["cell"], dec["gat"]
     E = de["w"].shape[1]
     HD = dg["wv"].shape[1]
     if HD % num_heads:
         raise ValueError(f"num_heads={num_heads} must divide the value width {HD}")
     maskf = mask.to(torch.float32).contiguous()
-    stats4 = _stats4(stats_mean, stats_std, h0.device)
     args = [
         (h0, "h0", (B, N, Hd)), (xy0, "xy0", (B, N, 2)), (maskf, "mask", (B, N)),
         (gumbel, "gumbel", (B, T, N, M)), (normal, "normal", (B, T, N, 2)),
-        (stats4, "stats", (4,)),
+        (stats, "stats", (4,)),
         (de["w"], "embed/w", (2, E)), (de["b"], "embed/b", (E,)),
         (dc["wx"], "cell/wx", (E, 3 * Hd)), (dc["wh"], "cell/wh", (Hd, 3 * Hd)),
         (dc["b"], "cell/b", (3 * Hd,)),
@@ -157,6 +195,24 @@ def fused_decode(h0, xy0, mask, gumbel, normal, params_dec, head_w, head_b, *,
     _build.raise_on_error(lib, code, "fused_decode")
     fused_decode.launches += 1
     return out
+
+
+def fused_decode(h0, xy0, mask, gumbel, normal, params_dec, head_w, head_b, *,
+                 num_heads: int, num_mixtures: int, radius: float, sigma_min: float,
+                 rho_max: float, stats_mean, stats_std) -> torch.Tensor:
+    """``mmtraj::fused_decode``: the Hopper kernel for CUDA tensors,
+    ``reference_decode`` for CPU tensors.  No backward."""
+    N = h0.shape[1]
+    assert radius > 0, "fused decoder requires a finite adjacency radius"
+    assert N in (8, 16, 32, 64, 128), (
+        f"fused decoder requires a lane-tileable agent count, got N={N}; "
+        "use the plain path (use_fused_decoder=False) for other shapes"
+    )
+    weights = [params_dec[mod][leaf] for mod, leaf in (k.split("/") for k in WEIGHTS[:-2])]
+    weights += [head_w, head_b]
+    return torch.ops.mmtraj.fused_decode(
+        h0, xy0, mask, gumbel, normal, weights, _stats4(stats_mean, stats_std, h0.device),
+        num_heads, num_mixtures, float(radius), float(sigma_min), float(rho_max))
 
 
 fused_decode.launches = 0

@@ -20,6 +20,10 @@ of its slab, and computes out = agg wo + bo on the tensor cores; wv and wo
 arrive in shared memory by ``cp.async``.  The JAX package's super-graph
 packing (128/N graphs folded into one for the TPU's lanes) is exact and is
 not carried over.
+
+The kernel is the ``torch.library`` custom op ``mmtraj::fused_gat``,
+registered when this module is imported: ``gat_math`` on the CPU, the
+kernel on CUDA, and a fake implementation for ``torch.export``.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import ctypes
 import torch
 
 from mmtraj_torch.ops import _build
-from mmtraj_torch.ops.fused_attend import MAX_N, attend_math
+from mmtraj_torch.ops.fused_attend import MAX_N, _wants_grad, attend_math
 
 
 def _block_diag(a: torch.Tensor) -> torch.Tensor:
@@ -48,23 +52,39 @@ def gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tenso
     return attend_math(v, s_src, s_dst, attend, num_heads) @ wo + bo
 
 
+@torch.library.custom_op("mmtraj::fused_gat", mutates_args=(), device_types="cpu")
+def _fused_gat_op(h: torch.Tensor, attend: torch.Tensor, wv: torch.Tensor, a_src: torch.Tensor,
+                  a_dst: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                  num_heads: int) -> torch.Tensor:
+    """``mmtraj::fused_gat`` on the CPU: the plain version."""
+    return gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
+
+
+@_fused_gat_op.register_kernel("cuda")
+def _fused_gat_cuda(h, attend, wv, a_src, a_dst, wo, bo, num_heads):
+    return _launch(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
+
+
+@_fused_gat_op.register_fake
+def _fused_gat_fake(h, attend, wv, a_src, a_dst, wo, bo, num_heads):
+    return h.new_empty((h.shape[0], h.shape[1], wo.shape[1]))
+
+
 class _FusedGat(torch.autograd.Function):
-    """The kernel forward with the JAX package's backward: autograd of
-    ``gat_math`` on the saved inputs (``mmtraj/ops/fused_gat.py:_bwd``, the
-    VJP of ``gat_math``).  ``attend`` gets the gradient of ``gat_math`` too,
-    as JAX's VJP returns one, but only when the caller's ``attend`` requires
-    it (the model's 0/1 tile, made from a bool adjacency, never does);
-    ``num_heads`` gets none.  There is no backward kernel, as in JAX.  On CPU
-    tensors the forward is ``gat_math`` itself (the CPU tests drive the
-    Function that way)."""
+    """``mmtraj::fused_gat`` forward with the JAX package's backward:
+    autograd of ``gat_math`` on the saved inputs
+    (``mmtraj/ops/fused_gat.py:_bwd``, the VJP of ``gat_math``).  ``attend``
+    gets the gradient of ``gat_math`` too, as JAX's VJP returns one, but only
+    when the caller's ``attend`` requires it (the model's 0/1 tile, made from
+    a bool adjacency, never does); ``num_heads`` gets none.  There is no
+    backward kernel, as in JAX.  On CPU tensors the op's forward is
+    ``gat_math`` itself (the CPU tests drive the Function that way)."""
 
     @staticmethod
     def forward(ctx, h, attend, wv, a_src, a_dst, wo, bo, num_heads):
         ctx.num_heads = num_heads
         ctx.save_for_backward(h, attend, wv, a_src, a_dst, wo, bo)
-        if not h.is_cuda:
-            return gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
-        return _launch(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
+        return torch.ops.mmtraj.fused_gat(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -78,11 +98,13 @@ class _FusedGat(torch.autograd.Function):
 
 
 def fused_gat(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tensor:
-    """``gat_math`` through the Hopper kernel for CUDA tensors, differentiable
-    (``_FusedGat``); a CPU tensor takes ``gat_math`` itself."""
-    if not h.is_cuda:
-        return gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
-    return _FusedGat.apply(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
+    """``mmtraj::fused_gat``: the Hopper kernel for CUDA tensors, ``gat_math``
+    for CPU tensors; differentiable (``_FusedGat``, taken where a gradient
+    is recorded)."""
+    args = (h, attend, wv, a_src, a_dst, wo, bo)
+    if _wants_grad(*args):
+        return _FusedGat.apply(*args, num_heads)
+    return torch.ops.mmtraj.fused_gat(*args, num_heads)
 
 
 def _launch(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tensor:
