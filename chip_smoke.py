@@ -116,6 +116,19 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    ``serve_bench``'s JSON line (route A, B = 25), printed on a line of its
    own.
 
+14. (run before 7's line) scale-out at config 4's full width:
+   ``fused_gat_lanes`` (the GAT kernel over 5 lanes of weights in one launch)
+   against its plain version at (5, 16, 64, 64); a population of 5 seeds
+   (B = 16 each, ``use_pallas``, chunks of ``CHUNK_M`` replayed from a CUDA
+   graph) with exact launches a population step (20 ``fused_gat``, each a
+   lane-batched ``fused_gat_lanes``), each lane's losses over 20 steps
+   against a sequential graphed run of its seed, seed-steps/s of both and
+   the peak memory, and ``fit_population`` end to end on the in-repo data;
+   config 5 (B = 256, ``use_pallas``) data-parallel over NCCL at world
+   size 1: graphed chunks and ``fit`` equal to the bit to the runs without
+   a mesh, ``evaluate(mesh=)`` equal to ``evaluate()``; ``fit(stream=True)``
+   equal to the resident ``fit``, and ``stream_bench`` at a reduced size.
+
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises and exits nonzero; without a CUDA device the script
@@ -158,7 +171,7 @@ EVAL_ADE_TOL = 1e-2  # meters, route A against plain on the whole scene
 EVAL_NLL_RTOL = 1e-5
 EVAL_INVARIANCE_RTOL = 1e-5
 GRAPH_TOL = 1e-6  # meters: rollout_k replayed from a CUDA graph against eager, one stream
-TRAIN_STEPS, VARIETY_N, FIT_STEPS = 3, 8, 100
+TRAIN_STEPS, VARIETY_N, FIT_STEPS = 3, 8, 60
 CHUNK_M, CHUNK_STEPS = 10, 20  # phase 11: steps a dispatch, steps against eager
 REMAT_BATCHES = (16, 128)
 REMAT_GRAD_RTOL = 1e-5  # a policy's step-1 gradients against "full", of each leaf's largest
@@ -172,6 +185,18 @@ ATTN_LATER_LOSS_RTOL = 1e-4
 # whose gradient is within rounding of 0 may move the other way: every
 # element within 2 lr a step, and 99% of them within PARAM_TOL.
 PARAM_TOL = 1e-4
+# Phase 14: a population lane against its sequential run.  The lane runs
+# other kernels (batched products of S lanes, no remat), so the two round
+# differently, and on random-walk windows Adam amplifies that about tenfold a
+# step from step 4 (an element whose gradient is within rounding of 0 moves
+# by up to lr either way: PARAM_TOL's reason): 0.11 apart at step 18 of one
+# seed on an H100.  So the 20-step runs are held at step 1, where they start
+# from one state, and a further step of each lane from the lane's own state
+# is held to its sequential step (loss TRAIN_LOSS_RTOL, PARAM_TOL's rule).
+POP_SEEDS, POP_STEPS = (0, 1, 2, 3, 4), 20
+C5_STEPS, C5_FIT_STEPS = 20, 20  # config 5: graphed steps, fit steps
+STREAM_STEPS = 10
+STREAM_BENCH_WINDOWS, STREAM_BENCH_B, STREAM_BENCH_STEPS = 2000, 256, 10
 # Phase 12 (bf16): a kernel route's step against the plain route's from the
 # same state, of the new hidden state's largest |value|; best-of-K ADE/FDE of
 # two bf16 routes, meters.
@@ -1340,6 +1365,274 @@ def serving_phase(torch, dev, card, cfg, routes, state, stats, xy_obs, mask, cou
     print(json.dumps(row), flush=True)
 
 
+def lanes_cost(s, b, n, d, hd, h, dout):
+    """``gat_cost`` of S lanes of B graphs, each lane reading its own weights."""
+    flops, nbytes, products = gat_cost(s * b, n, d, hd, h, dout)
+    weights = d * hd + 2 * hd + hd * dout + dout
+    return flops, nbytes + 4 * (s - 1) * weights, products
+
+
+def scale_out_phase(torch, dev, card, cfg, counted, zero, results) -> None:
+    """Phase 14: scale-out at config 4's full width.  The lane-batched
+    ``fused_gat_lanes`` against its plain version; a population of
+    ``POP_SEEDS`` seeds (B = 16 each, ``use_pallas``, graphed chunks of
+    ``CHUNK_M``) against a sequential graphed run of each seed, with exact
+    launches a population step, seed-steps/s of both and the peak memory,
+    and ``fit_population`` end to end; config 5 (B = 256) data-parallel
+    over NCCL at world size 1, graphed and through ``fit``, equal to the bit
+    to the same runs without a mesh, with ``evaluate(mesh=)`` equal to
+    ``evaluate()``; the streamed ``fit`` against the resident one, and
+    ``stream_bench`` at a reduced size."""
+    import torch.distributed as dist
+
+    from mmtraj_torch import population as popm
+    from mmtraj_torch import train as tr
+    from mmtraj_torch.benchmarks import stream_bench, train_bench
+    from mmtraj_torch.config import config5
+    from mmtraj_torch.data.transforms import NormStats
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.ops import _build, fused_gat
+    from mmtraj_torch.parallel import make_mesh
+    from mmtraj_torch.params import init_params
+    from mmtraj_torch.utils.logging import MetricsLogger
+
+    TB, M, S, H = cfg.train.batch_size, CHUNK_M, len(POP_SEEDS), cfg.model.num_heads
+    stats = NormStats(torch.zeros(2, device=dev), torch.ones(2, device=dev))
+    states = [init_params(cfg.model, torch.Generator().manual_seed(s)) for s in POP_SEEDS]
+    summary = {"card": card}
+
+    # a. fused_gat_lanes at (S, B, N, D) against gat_math lane by lane.
+    rng = np.random.default_rng(14)
+    h = torch.tensor(rng.normal(size=(S, TB, N, 64)), dtype=torch.float32, device=dev)
+    att = torch.tensor(rng.random((S, TB, N, N)) < 0.3, dtype=torch.float32, device=dev)
+    att[:, :, -1] = 0.0
+    ws = [torch.stack([st[f"enc.gat.{k}"] for st in states]).to(dev)
+          for k in ("wv", "a_src", "a_dst", "wo", "bo")]
+    args = (h, att, *ws, H)
+
+    def plain_lanes():
+        return torch.stack([fused_gat.gat_math(*(t[i] for t in args[:-1]), H) for i in range(S)])
+
+    out_k, out_p = fused_gat.fused_gat_lanes(*args), plain_lanes()
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
+          f"fused_gat_lanes vs plain: max abs err {err}")
+    hd, dout = ws[0].shape[-1], ws[3].shape[-1]
+    results["fused_gat_lanes"] = dict(
+        occupancy=_build.occupancy("gat", N, 64, H, hd, dout), max_abs_err=err,
+        ms=time_ms(torch, lambda: fused_gat.fused_gat_lanes(*args)),
+        plain_ms=time_ms(torch, plain_lanes), cost=lanes_cost(S, TB, N, 64, hd, H, dout))
+    r = results["fused_gat_lanes"]
+    log(f"fused_gat_lanes {(S, TB, N, 64)} H={H}: max abs err {err:.3e} (tol {KERNEL_TOL}); "
+        f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{bound(*r['cost'][:2])[0]:.6f} ms, tc bound {tc_bound(*r['cost']):.6f} ms")
+
+    # b. The population against sequential graphed runs, step by step.
+    pcfg = cfg.replace(model=dataclasses.replace(cfg.model, use_pallas=True))
+    xy_all, mask_all = train_bench.fake_batch(8 * TB, N, TO + TP, dev, seed=7)
+    idx = np.stack([np.stack([np.random.default_rng([s, k]).permutation(8 * TB)[:TB]
+                              for s in POP_SEEDS]) for k in range(POP_STEPS)])  # (steps, S, B)
+    per_pop_step = {**zero, "fused_gat": TO + TP, "fused_gat_lanes": TO + TP}
+    with torch.enable_grad():
+        params = popm.stack_lanes(states, dev)
+        model = popm.lane_model(pcfg, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        popt = tr.Optimizer(params, pcfg, lanes=True)
+        pop = popm.make_population_step(model, params, popt, stats, POP_SEEDS, loss_mode="nll")
+        pop_losses, pop_s = [], []
+        for k in range(POP_STEPS // M):
+            t0 = time.perf_counter()
+            losses, counts = counted(lambda: pop(xy_all, mask_all, idx[k * M:(k + 1) * M],
+                                                 range(k * M, (k + 1) * M)))
+            pop_s.append(time.perf_counter() - t0)
+            pop_losses.append(losses.cpu().numpy())
+            n = tr.CAPTURE_WARMUP + 1 if k == 0 else 0
+            check(counts == {key: n * v for key, v in per_pop_step.items()},
+                  f"population chunk {k}: launches {counts}, want {n} x {per_pop_step}")
+        check(pop.capture_launches == per_pop_step,
+              f"population: capture launches {pop.capture_launches}, want {per_pop_step}")
+        pop_peak = torch.cuda.max_memory_allocated() - base_mem
+        pop_losses = np.concatenate(pop_losses)  # (steps, S)
+        seq_s, worst, lane_rows = [], 0.0, {}
+        for i, seed in enumerate(POP_SEEDS):
+            m_ = Forecaster(pcfg.model, TO, TP, device=dev, state=states[i])
+            multi = tr.make_multi_train_step(m_, tr.make_optimizer(pcfg, m_), stats, seed=seed)
+            seq = []
+            for k in range(POP_STEPS // M):
+                t0 = time.perf_counter()
+                losses, _ = counted(lambda: multi(xy_all, mask_all, idx[k * M:(k + 1) * M, i],
+                                                  range(k * M, (k + 1) * M)))
+                seq.append(losses.cpu().numpy())
+                seq_s.append(time.perf_counter() - t0)
+            seq = np.concatenate(seq)
+            rel = np.abs(pop_losses[:, i] - seq) / np.abs(seq)
+            check(rel[0] <= TRAIN_LOSS_RTOL and np.isfinite(pop_losses[:, i]).all(),
+                  f"population lane {seed} vs its sequential run: rel {rel.tolist()}")
+            past = np.nonzero(rel > TRAIN_LOSS_RTOL)[0]
+            lane_rows[seed] = {"loss_rel_step1": float(rel[0]), "loss_rel_max": float(rel.max()),
+                               "first_step_past_1e-5": int(past[0]) + 1 if len(past) else None}
+            worst = max(worst, float(rel.max()))
+
+        # One more step of every lane (eager), each from the lane's own state,
+        # against one sequential step from that state on the same batch.
+        idx_next = np.stack([np.random.default_rng([s, POP_STEPS]).permutation(8 * TB)[:TB]
+                             for s in POP_SEEDS])[None]  # (1, S, B)
+        snap = {k_: v.detach().clone() for k_, v in params.items()}
+        leaves = [popt.state_leaves(i) for i in range(S)]
+        synced, counts = counted(lambda: pop(xy_all, mask_all, idx_next, [POP_STEPS]))
+        check(counts == per_pop_step, f"population eager step: launches {counts}")
+        synced = synced.cpu().numpy()[0]
+        for i, seed in enumerate(POP_SEEDS):
+            m_ = Forecaster(pcfg.model, TO, TP, device=dev,
+                            state={k_: v[i] for k_, v in snap.items()})
+            o_ = tr.make_optimizer(pcfg, m_)
+            o_.load_state_leaves(leaves[i])
+            rows = torch.as_tensor(idx_next[0, i], device=dev)
+            want = float(tr.make_train_step(m_, o_, stats, seed=seed)(
+                xy_all[rows], mask_all[rows], POP_STEPS))
+            rel = abs(float(synced[i]) - want) / abs(want)
+            dp = (torch.cat([params[k_][i].detach().flatten() for k_ in sorted(params)])
+                  - torch.cat([dict(m_.named_parameters())[k_].detach().flatten()
+                               for k_ in sorted(params)])).abs()
+            share = (dp > PARAM_TOL).float().mean().item()
+            check(rel <= TRAIN_LOSS_RTOL and dp.max().item() <= 2 * pcfg.train.lr
+                  and share <= 0.01, f"population lane {seed}, step {POP_STEPS + 1} from its own "
+                  f"state: loss rel {rel}, parameters max |d| {dp.max().item()}, share {share}")
+            lane_rows[seed].update({"synced_loss_rel": rel, "synced_param_max_abs": dp.max().item(),
+                                    "synced_param_share_past_1e-4": share})
+    pop_ms = pop_s[-1] / M * 1e3
+    seq_ms = statistics.median(seq_s[1::POP_STEPS // M]) / M * 1e3  # each run's replay chunk
+    summary["population"] = {
+        "seeds": S, "batch": TB, "steps_per_dispatch": M, "fused_gat_a_step": TO + TP,
+        "loss_max_rel_vs_sequential": worst, "population_ms_a_step": pop_ms,
+        "sequential_ms_a_step": seq_ms, "seed_steps_per_s": S / pop_ms * 1e3,
+        "sequential_seed_steps_per_s": 1e3 / seq_ms, "peak_mib": pop_peak / 2**20,
+        "first_chunk_s": pop_s[0], "lanes": lane_rows}
+    log(f"population S={S} B={TB} use_pallas M={M}: fused_gat {TO + TP} launches a step (one "
+        f"lane-batched launch a GAT call); {POP_STEPS} steps a lane against its sequential "
+        f"graphed run: step 1 within {TRAIN_LOSS_RTOL} relative, then apart by up to "
+        f"{worst:.2e} (Adam's amplification); step {POP_STEPS + 1} from each lane's own state "
+        f"against its sequential step: {json.dumps(lane_rows)}; "
+        f"{pop_ms:.2f} ms a population step ({S / pop_ms * 1e3:.1f} seed-steps/s) against "
+        f"{seq_ms:.2f} ms a sequential step ({1e3 / seq_ms:.1f}); peak "
+        f"{pop_peak / 2**20:.1f} MiB above the start; first chunk {pop_s[0]:.2f} s")
+
+    # c. fit_population end to end (on the in-repo data, univ held out), route
+    # A: the lanes train through fused_gat_lanes, each seed's final evaluate
+    # runs fused_gat and fused_decode.
+    route_a = dataclasses.replace(pcfg.model, use_fused_decoder=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_pop_", dir=Path(__file__).resolve().parent))
+    try:
+        fcfg = pcfg.replace(
+            model=route_a, data=dataclasses.replace(pcfg.data, data_dir=str(EVAL_DATA)),
+            train=dataclasses.replace(pcfg.train, steps=POP_STEPS, steps_per_dispatch=M,
+                                      eval_every=0, log_every=M, k_samples=K,
+                                      out_dir=str(tmp)))
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            res, counts = counted(lambda: popm.fit_population(
+                fcfg, POP_SEEDS, device=dev, logger=MetricsLogger(None, quiet=True)))
+        fit_pop_s = time.perf_counter() - t0
+        check(len(res) == S and all((tmp / f"s{s}" / "checkpoint.npz").exists()
+                                    for s in POP_SEEDS), "fit_population: a seed's checkpoint")
+        for r_ in res:
+            m = r_.eval_metrics
+            check(all(math.isfinite(m[k]) for k in ("min_ade", "min_fde", "nll")),
+                  f"fit_population eval: {m}")
+            check(np.mean([v for _, v in r_.history]) > 0, "fit_population history")
+    finally:
+        shutil.rmtree(tmp)
+    summary["fit_population_s"] = fit_pop_s
+    log(f"fit_population S={S} route A on data/synthetic3000 ({POP_STEPS} steps, M={M}, "
+        f"final eval K={K} a seed): {fit_pop_s:.1f} s; launches {counts}; min_ade a seed "
+        f"{[round(r_.eval_metrics['min_ade'], 4) for r_ in res]}")
+
+    # d. Config 5: data-parallel over NCCL at world size 1, equal to the bit.
+    c5 = config5()
+    c5 = c5.replace(model=dataclasses.replace(c5.model, use_pallas=True, use_fused_decoder=True))
+    B5 = c5.train.batch_size
+    mesh = make_mesh(device=dev)
+    try:
+        xy5, mask5 = train_bench.fake_batch(2 * B5, N, TO + TP, dev, seed=8)
+        idx5 = np.stack([np.random.default_rng(k).permutation(2 * B5)[:B5]
+                         for k in range(C5_STEPS)])
+        runs, ms5 = {}, {}
+        with torch.enable_grad():
+            for label, mesh_ in (("data_parallel", mesh), ("single", None)):
+                m5 = Forecaster(c5.model, TO, TP, device=dev, state=states[0])
+                multi = tr.make_multi_train_step(m5, tr.make_optimizer(c5, m5), stats,
+                                                 seed=0, mesh=mesh_)
+                losses, times = [], []
+                for k in range(C5_STEPS // M):
+                    t0 = time.perf_counter()
+                    out, _ = counted(lambda: multi(xy5, mask5, idx5[k * M:(k + 1) * M],
+                                                   range(k * M, (k + 1) * M)))
+                    losses.append(out.cpu().numpy())
+                    times.append(time.perf_counter() - t0)
+                runs[label] = (np.concatenate(losses),
+                               torch.cat([p.detach().flatten() for p in m5.parameters()]))
+                ms5[label] = times[-1] / M * 1e3
+        same = (np.array_equal(runs["data_parallel"][0], runs["single"][0])
+                and torch.equal(runs["data_parallel"][1], runs["single"][1]))
+        check(same, "config 5: the data-parallel graphed run differs from the single-process one")
+        # fit with --data-parallel (its evaluate runs on the mesh) against fit without.
+        fit5 = c5.replace(data=dataclasses.replace(c5.data, data_dir=str(EVAL_DATA)),
+                          train=dataclasses.replace(c5.train, steps=C5_FIT_STEPS,
+                                                    steps_per_dispatch=M, eval_every=0,
+                                                    log_every=1, k_samples=K, out_dir=""))
+        with torch.enable_grad():
+            dp_fit, counts5 = counted(lambda: tr.fit(fit5, device=dev, mesh=mesh,
+                                                     logger=MetricsLogger(None, quiet=True)))
+            single_fit, _ = counted(lambda: tr.fit(
+                fit5.replace(train=dataclasses.replace(fit5.train, data_parallel=False)),
+                device=dev, logger=MetricsLogger(None, quiet=True)))
+        check(dp_fit.history == single_fit.history
+              and all(torch.equal(dp_fit.state[k], single_fit.state[k]) for k in dp_fit.state),
+              "config 5: fit --data-parallel differs from fit")
+        check(dp_fit.eval_metrics == single_fit.eval_metrics,
+              f"config 5: evaluate(mesh=) {dp_fit.eval_metrics} != evaluate() "
+              f"{single_fit.eval_metrics}")
+    finally:
+        dist.destroy_process_group()
+    summary["config5"] = {"batch": B5, "world_size": 1, "graphed_ms_a_step": ms5,
+                          "bit_identical": True, "fit_launches": counts5}
+    log(f"config 5 (B={B5}, route A, M={M}) --data-parallel over NCCL at world size 1: "
+        f"{C5_STEPS} graphed steps equal to the single-process run to the bit; "
+        f"{ms5['data_parallel']:.2f} ms a step (single {ms5['single']:.2f}); fit "
+        f"{C5_FIT_STEPS} steps --data-parallel equal to fit to the bit, evaluate(mesh=) equal "
+        f"to evaluate(): min_ade {dp_fit.eval_metrics['min_ade']:.6f}")
+
+    # e. The streamed fit against the resident one, and stream_bench.
+    scfg = cfg.replace(model=route_a, data=dataclasses.replace(cfg.data, data_dir=str(EVAL_DATA)),
+                       train=dataclasses.replace(cfg.train, steps=STREAM_STEPS, eval_every=0,
+                                                 log_every=1, k_samples=K, out_dir=""))
+    with torch.enable_grad():
+        t0 = time.perf_counter()
+        resident = tr.fit(scfg, device=dev, logger=MetricsLogger(None, quiet=True))
+        t_res = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        streamed = tr.fit(scfg.replace(train=dataclasses.replace(scfg.train, stream=True)),
+                          device=dev, logger=MetricsLogger(None, quiet=True))
+        t_str = time.perf_counter() - t0
+        check(streamed.history == resident.history
+              and all(torch.equal(streamed.state[k], resident.state[k]) for k in resident.state)
+              and streamed.eval_metrics == resident.eval_metrics,
+              "fit(stream=True) differs from the resident fit")
+        sb = stream_bench.bench_ingest(STREAM_BENCH_WINDOWS, STREAM_BENCH_B, STREAM_BENCH_STEPS,
+                                       N, "float32", warmup=2, device=dev)
+    check(sb["resident_steps_per_sec"] > 0 and sb["stream_steps_per_sec"] > 0, f"{sb}")
+    summary["stream"] = {"fit_steps": STREAM_STEPS, "resident_fit_s": t_res,
+                         "stream_fit_s": t_str, "stream_bench": sb}
+    log(f"fit(stream=True) equals the resident fit to the bit over {STREAM_STEPS} steps and "
+        f"its eval ({t_str:.1f} s against {t_res:.1f} s with the final eval); stream_bench "
+        f"({STREAM_BENCH_WINDOWS} windows, B={STREAM_BENCH_B}): resident "
+        f"{sb['resident_steps_per_sec']:.3f}, stream {sb['stream_steps_per_sec']:.3f} steps/s")
+    log("scale-out " + json.dumps(summary))
+
+
 def main() -> int:
     import torch
 
@@ -1516,7 +1809,8 @@ def main() -> int:
 
     # -- 4./5. the routes end to end, through Forecaster.rollout_k -----------------
     counters = {"attend": fused_attend.attend, "attend_packed": fused_attend.attend_packed,
-                "fused_gat": fused_gat.fused_gat, "fused_decode": fused_decoder.fused_decode}
+                "fused_gat": fused_gat.fused_gat, "fused_gat_lanes": fused_gat.fused_gat_lanes,
+                "fused_decode": fused_decoder.fused_decode}
     launches = dict.fromkeys(counters, 0)  # summed over the main-path runs
 
     def reset_counts():
@@ -1736,11 +2030,17 @@ def main() -> int:
                   dict.fromkeys(counters, 0))
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
+    # -- 14. scale-out: the population, config 5's data parallelism, streaming ---------
+    t0 = time.perf_counter()
+    scale_out_phase(torch, dev, card, cfg, counted, dict.fromkeys(counters, 0), results)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
     # -- 7. the kernels line ----------------------------------------------------
     sources = {
         "attend": ("mmtraj_torch/csrc/attend.cu", "mmtraj/ops/fused_attend.py:212"),
         "attend_packed": ("mmtraj_torch/csrc/attend_packed.cu", "mmtraj/ops/fused_attend.py:229"),
         "fused_gat": ("mmtraj_torch/csrc/gat.cu", "mmtraj/ops/fused_gat.py:150"),
+        "fused_gat_lanes": ("mmtraj_torch/csrc/gat.cu", "mmtraj/ops/fused_gat.py:150"),
         "fused_decode": ("mmtraj_torch/csrc/decoder.cu", "mmtraj/ops/fused_decoder.py:208"),
     }
     kernels = []

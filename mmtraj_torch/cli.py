@@ -1,5 +1,6 @@
 """Command-line entry point of the port (counterpart of ``mmtraj/cli.py``).
-Ported: ``train`` (single device, resident data; the flags below),
+Ported: ``train`` (one scene; the flags below, with ``--data-parallel``,
+``--stream``, ``--seeds`` and ``--vmap-seeds``),
 ``eval`` (scores a checkpoint on the held-out scene and prints the JAX
 package's eval line), ``autotune-eval`` (the fastest eval batch on this
 card), ``convert`` (a checkpoint between the .npz, .pt and .h5 formats,
@@ -15,10 +16,14 @@ mmtraj.cli convert`` first.
 Usage:
   python -m mmtraj_torch.cli train --config 4 --data-dir data/synthetic3000 --out-dir runs/x
   python -m mmtraj_torch.cli train --config 1 --data-dir ... --steps-per-dispatch 10
+  python -m mmtraj_torch.cli train --config 4 --data-dir ... --seeds 0 1 2 3 4 --vmap-seeds
+  python -m mmtraj_torch.cli train --config 5 --data-dir ... --data-parallel
+  python -m mmtraj_torch.cli train --config 4 --data-dir ... --stream
   python -m mmtraj_torch.cli eval --ckpt runs/x/checkpoint.npz --data-dir data/synthetic3000
   python -m mmtraj_torch.cli eval --ckpt runs/x/model.pt --dtype bfloat16
   python -m mmtraj_torch.cli autotune-eval --ckpt runs/x/checkpoint.npz
   python -m mmtraj_torch.cli eval --ckpt ... --data-dir ... --device cpu
+  python -m mmtraj_torch.cli eval --ckpt ... --data-dir ... --data-parallel
   python -m mmtraj_torch.cli convert --src runs/x/checkpoint.npz --dst runs/x/model.pt
   python -m mmtraj_torch.cli convert --keras --src runs/x/checkpoint.npz --dst keras.h5
   python -m mmtraj_torch.cli convert --keras --src keras.h5 --like x.npz --dst imported.npz
@@ -36,7 +41,6 @@ import dataclasses
 import sys
 
 from mmtraj_torch.config import SCENES, get_config
-from mmtraj_torch.params import not_ported
 
 
 def _add_train(sub) -> None:
@@ -87,14 +91,25 @@ def _add_train(sub) -> None:
     tp.add_argument("--augment-flip", action="store_true",
                     help="also randomly reflect windows (implies --augment)")
     tp.add_argument("--seed", type=int, default=None)
+    tp.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="train one run a seed, each into {out-dir}/s{seed}, and report "
+                         "mean±std (e.g. --seeds 0 1 2)")
+    tp.add_argument("--vmap-seeds", action="store_true",
+                    help="train the --seeds sweep as one vmapped population "
+                         "(mmtraj_torch/population.py): every kernel of a step runs once for "
+                         "all seeds; same per-seed results and s{seed}/ checkpoints")
     tp.add_argument("--out-dir", default=None)
     tp.add_argument("--eval-every", type=int, default=None)
     tp.add_argument("--ckpt-every", type=int, default=None,
                     help="periodic checkpoint interval in steps (enables resume)")
     tp.add_argument("--resume", action="store_true",
                     help="resume from {out-dir}/checkpoint.npz if present")
-    tp.add_argument("--data-parallel", action="store_true", help="not ported")
-    tp.add_argument("--stream", action="store_true", help="not ported")
+    tp.add_argument("--data-parallel", action="store_true",
+                    help="split each batch over the processes of a torch.distributed group "
+                         "(one process a card; without a launcher a group of one)")
+    tp.add_argument("--stream", action="store_true",
+                    help="stream host batches through a pinned, double-buffered prefetch "
+                         "instead of holding the window set on the device")
     tp.add_argument("--steps-per-dispatch", type=int, default=None,
                     help="M steps a host dispatch: on the card one step as a CUDA graph, "
                          "replayed M times (needs resident data, not --stream)")
@@ -129,7 +144,9 @@ def build_parser() -> argparse.ArgumentParser:
     ep.add_argument("--rollout", default="sample", choices=("sample", "modes"),
                     help="'sample': K sampled rollouts; 'modes': one trajectory per "
                          "mixture component")
-    ep.add_argument("--data-parallel", action="store_true", help="not ported")
+    ep.add_argument("--data-parallel", action="store_true",
+                    help="split each eval batch over the processes of a torch.distributed "
+                         "group (without a launcher a group of one)")
     ep.add_argument("--reduction", default="per_agent", choices=("per_agent", "per_window"))
     ep.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
                     help="override the model compute dtype (bfloat16: the products' "
@@ -266,14 +283,59 @@ def _apply_overrides(cfg, args):
     )
 
 
-def _train(args) -> int:
+def _vmap_seeds_guard(parser, args) -> None:
+    """--vmap-seeds preconditions (``mmtraj_torch/population.py``'s scope),
+    as parser errors before any data or model work; the messages are the
+    JAX package's."""
+    if args.seeds is None or len(args.seeds) < 2:
+        parser.error("--vmap-seeds requires --seeds with >= 2 seeds")
+    if args.resume:
+        parser.error("--vmap-seeds does not support --resume")
+    if args.stream:
+        parser.error("--vmap-seeds requires resident ingest (drop --stream)")
+
+
+def _train(args, parser) -> int:
+    """One run, or with ``--seeds`` one a seed into ``{out-dir}/s{seed}``
+    (sequentially, or as one population with ``--vmap-seeds``), then the
+    final metrics, and their mean and spread over seeds."""
+    import statistics
+
     from mmtraj_torch.train import fit
 
-    cfg = _apply_overrides(get_config(args.config), args)
-    result = fit(cfg, resume=args.resume, device=args.device)
-    m = result.eval_metrics
-    if m:
-        print(f"final: best-of-{m['k']} ADE={m['min_ade']:.4f}m FDE={m['min_fde']:.4f}m")
+    seeds = args.seeds if args.seeds else [args.seed]
+    finals = []
+
+    def report(seed, result):
+        m = result.eval_metrics
+        if m:
+            finals.append(m)
+            tag = f" (seed {seed})" if len(seeds) > 1 else ""
+            print(f"final{tag}: best-of-{m['k']} ADE={m['min_ade']:.4f}m "
+                  f"FDE={m['min_fde']:.4f}m")
+
+    if args.vmap_seeds:
+        from mmtraj_torch.population import fit_population
+
+        _vmap_seeds_guard(parser, args)
+        args.seed = seeds[0]
+        cfg = _apply_overrides(get_config(args.config), args)
+        for seed, result in zip(seeds, fit_population(cfg, seeds, device=args.device)):
+            report(seed, result)
+    else:
+        base_out = args.out_dir
+        for seed in seeds:
+            args.seed, args.out_dir = seed, base_out
+            cfg = _apply_overrides(get_config(args.config), args)
+            if len(seeds) > 1:
+                cfg = cfg.replace(train=dataclasses.replace(
+                    cfg.train, out_dir=f"{cfg.train.out_dir}/s{seed}"))
+            report(seed, fit(cfg, resume=args.resume, device=args.device))
+    if len(finals) > 1:
+        a = [m["min_ade"] for m in finals]
+        f = [m["min_fde"] for m in finals]
+        print(f"over {len(finals)} seeds: ADE={statistics.mean(a):.4f}±{statistics.stdev(a):.4f}m "
+              f"FDE={statistics.mean(f):.4f}±{statistics.stdev(f):.4f}m")
     return 0
 
 
@@ -399,7 +461,7 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.cmd == "train":
-        return _train(args)
+        return _train(args, parser)
     if args.cmd == "autotune-eval":
         return _autotune(args)
     if args.cmd == "convert":
@@ -410,21 +472,23 @@ def main(argv=None) -> int:
         return _serve(args)
     if args.cmd == "predict":
         return _predict(args, parser)
-    if args.data_parallel:
-        raise not_ported("eval --data-parallel", "item 6, scale-out")
     from mmtraj_torch import checkpoint
     from mmtraj_torch.evaluate import evaluate
     from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.parallel import is_writer, make_mesh
 
     ck = checkpoint.load(args.ckpt)
     cfg = _apply_overrides(ck.config, args)
     ds = _load_eval_dataset(cfg, args.auto_n_max)
     model = Forecaster(cfg.model, cfg.data.obs_len, cfg.data.pred_len, device=args.device,
                        state=ck.state)
+    mesh = make_mesh(device=args.device) if args.data_parallel else None
     m = evaluate(model, ck.stats, ds, cfg.train.k_samples, args.batch_size, args.seed,
-                 reduction=args.reduction, sigma_scale=args.sigma_scale,
+                 mesh=mesh, reduction=args.reduction, sigma_scale=args.sigma_scale,
                  rollout=args.rollout, oversample=args.oversample, tta=args.tta,
                  buckets=args.buckets)
+    if not is_writer(mesh):
+        return 0
     red = m["reduction"] + (", modes" if args.rollout == "modes" else "")
     print(
         f"scene={cfg.data.scene} step={ck.step} windows={m['n_windows']} "

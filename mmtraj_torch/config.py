@@ -10,8 +10,9 @@ In the port, ``use_pallas=True`` selects the hand-written Hopper GAT kernel
 kernel (``ops/fused_decoder.py``).  ``remat``, ``remat_policy`` and
 ``dropout`` are read only by training.  ``dtype="bfloat16"`` rounds the
 operands of the model's products to bf16 and keeps their results float32
-(``models/layers.py``).  Preset 5's ``data_parallel`` names a part that is not
-ported yet; it raises where it is used.
+(``models/layers.py``).  ``data_parallel`` splits each batch over the ranks
+of a ``torch.distributed`` group (``mmtraj_torch/parallel``), ``stream``
+feeds batches through a pinned prefetch instead of the resident window set.
 """
 
 from __future__ import annotations
@@ -147,8 +148,10 @@ def config4() -> Config:
 
 def config5() -> Config:
     """Large-batch multi-scene training: config 4's model at batch 256,
-    data-parallel over several devices (not ported: ROADMAP.md queue 1
-    item 6)."""
+    data-parallel over the ranks of a ``torch.distributed`` group, one card
+    each (``train.fit``, ``cli train --config 5 --data-parallel``).  On a
+    machine with one H100 the mesh has one rank: the step is config 4's at
+    B = 256, its gradient ``all_reduce`` an identity."""
     return Config(
         model=ModelConfig(cell="gru", social=True, head="gmm", num_heads=4, remat=True),
         data=DataConfig(scene="univ", n_max=64),

@@ -29,6 +29,10 @@
 // memory goes away while a peer still reads it, and nobody waits for it in
 // between.  A padded row has no edge, so its aggregate is 0 and its output
 // exactly bo.
+// Lanes (mmtraj_gat_lanes, the vmap rule of mmtraj::fused_gat over stacked
+// weights): S lanes of B graphs each go in one launch, and graph b reads the
+// weights of lane b / B, the counterpart of a grid axis over lanes.
+// mmtraj_gat passes a lane of 0 graphs: every graph reads the one set.
 
 #include <cooperative_groups.h>
 
@@ -51,6 +55,7 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 struct Dims {
   int N, D, H, HD, Dout;
+  int lane;  // graphs a lane of weights; 0: one set of weights for every graph
 };
 
 // How a graph's rows are spread over its cluster, and the block's shared
@@ -150,6 +155,14 @@ gat_kernel(const float* __restrict__ h, const float* __restrict__ att,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const size_t b = blockIdx.x / L.C;
+  if (d.lane) {  // this graph's lane of weights
+    const size_t s = b / d.lane;
+    wv += s * d.D * HD;
+    a_src += s * HD;
+    a_dst += s * HD;
+    wo += s * HD * d.Dout;
+    bo += s * d.Dout;
+  }
   const int r0 = rank * L.R, rows = min(L.R, N - r0);  // rank < C, so rows >= 1
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2;
   const int words = L.Np / 64, covered = L.C * L.R;
@@ -258,18 +271,14 @@ cudaLaunchConfig_t launch_config(int C, size_t blocks, size_t smem, cudaStream_t
   return cfg;
 }
 
-}  // namespace
-
-// h (B, N, D), att (B, N, N) 0/1, wv (D, HD), a_src/a_dst (H, HD/H),
-// wo (HD, Dout), bo (Dout) -> out (B, N, Dout); all float32, contiguous.
-extern "C" int mmtraj_gat(const float* h, const float* att, const float* wv,
-                          const float* a_src, const float* a_dst, const float* wo,
-                          const float* bo, float* out, int B, int N, int D, int H, int HD,
-                          int Dout, cudaStream_t stream) {
+// One launch of B graphs at d; d.lane as in Dims.
+int launch(const float* h, const float* att, const float* wv, const float* a_src,
+           const float* a_dst, const float* wo, const float* bo, float* out, int B,
+           const Dims& d, cudaStream_t stream) {
   if (B <= 0) return cudaSuccess;
-  if (N <= 0 || N > kMaxN || D <= 0 || H <= 0 || HD <= 0 || HD % H || Dout <= 0)
+  if (d.N <= 0 || d.N > kMaxN || d.D <= 0 || d.H <= 0 || d.HD <= 0 || d.HD % d.H ||
+      d.Dout <= 0 || d.lane < 0)
     return cudaErrorInvalidValue;
-  const Dims d{N, D, H, HD, Dout};
   const Layout L(d);
   const size_t smem = shared_bytes(d);
   cudaError_t err = allow_shared_memory(gat_kernel, smem);
@@ -280,11 +289,34 @@ extern "C" int mmtraj_gat(const float* h, const float* att, const float* wv,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+}  // namespace
+
+// h (B, N, D), att (B, N, N) 0/1, wv (D, HD), a_src/a_dst (H, HD/H),
+// wo (HD, Dout), bo (Dout) -> out (B, N, Dout); all float32, contiguous.
+extern "C" int mmtraj_gat(const float* h, const float* att, const float* wv,
+                          const float* a_src, const float* a_dst, const float* wo,
+                          const float* bo, float* out, int B, int N, int D, int H, int HD,
+                          int Dout, cudaStream_t stream) {
+  return launch(h, att, wv, a_src, a_dst, wo, bo, out, B, Dims{N, D, H, HD, Dout, 0}, stream);
+}
+
+// S lanes with their own weights: h (S, B, N, D), att (S, B, N, N),
+// wv (S, D, HD), a_src/a_dst (S, H, HD/H), wo (S, HD, Dout), bo (S, Dout)
+// -> out (S, B, N, Dout); lane s is mmtraj_gat of its own B graphs and weights.
+extern "C" int mmtraj_gat_lanes(const float* h, const float* att, const float* wv,
+                                const float* a_src, const float* a_dst, const float* wo,
+                                const float* bo, float* out, int S, int B, int N, int D, int H,
+                                int HD, int Dout, cudaStream_t stream) {
+  if (S <= 0 || B <= 0) return cudaSuccess;
+  return launch(h, att, wv, a_src, a_dst, wo, bo, out, S * B, Dims{N, D, H, HD, Dout, B},
+                stream);
+}
+
 // Occupancy of a launch at (N, D, H, HD, Dout): see kernel_occupancy; and
 // info[4] the cluster's blocks, info[5] how many such clusters the card
 // holds at once.
 extern "C" int mmtraj_gat_occupancy(int N, int D, int H, int HD, int Dout, int* info) {
-  const Dims d{N, D, H, HD, Dout};
+  const Dims d{N, D, H, HD, Dout, 0};
   const Layout L(d);
   const size_t smem = shared_bytes(d);
   int err = kernel_occupancy(gat_kernel, kThreads, smem, info);

@@ -38,7 +38,7 @@ from mmtraj_torch.metrics import collisions, displacement_errors
 from mmtraj_torch.models import gmm
 from mmtraj_torch.models.forecaster import Forecaster
 from mmtraj_torch.models.sampling import diverse_select, diverse_select_joint
-from mmtraj_torch.params import not_ported
+from mmtraj_torch.parallel.mesh import all_gather_rows, check_mesh, shard_batch
 
 
 def vmem_friendly_batch(k: int, n_max: int, cap: int = 64, bytes_per_elem: int = 2,
@@ -243,11 +243,13 @@ def _batch_sums(models, xy, mask, win_idx, stats, seed: int, k: int, reduction: 
 
 # -- the window loop and the host reduction ---------------------------------------
 
-def _run_windows(sums, batch_fn, test_ds: WindowDataset, sel, n_b: int, bs: int, device):
+def _run_windows(sums, batch_fn, test_ds: WindowDataset, sel, n_b: int, bs: int, device,
+                 mesh=None):
     """The windows ``sel`` (dataset indices) at agent capacity ``n_b`` in
     fixed batches of ``bs``; each batch's per-window sums go onto ``sums``.
     Valid agents fill a prefix of the slots, so the first n_b slots hold
-    every agent of a window routed here."""
+    every agent of a window routed here.  With a mesh (``bs`` a multiple of
+    its size) this rank runs its rows of each batch."""
     for s in range(0, len(sel), bs):
         idx = sel[s:s + bs]
         xy, mask = test_ds.batch(idx)
@@ -257,15 +259,21 @@ def _run_windows(sums, batch_fn, test_ds: WindowDataset, sel, n_b: int, bs: int,
             xy = np.concatenate([xy, np.zeros((pad,) + xy.shape[1:], xy.dtype)])
             mask = np.concatenate([mask, np.zeros((pad,) + mask.shape[1:], bool)])
         win_idx = np.pad(np.asarray(idx, np.int64), (0, bs - len(idx)))
+        if mesh is not None:
+            xy, mask, win_idx = shard_batch((xy, mask, win_idx), mesh)
         sums.append(batch_fn(torch.from_numpy(np.ascontiguousarray(xy)).to(device),
                              torch.from_numpy(np.ascontiguousarray(mask)).to(device),
                              win_idx))
 
 
-def _metrics(sums, reduction: str, k: int, n: int, n_dropped: int) -> Dict:
-    """Copy the per-window sums to the host once and add them exactly."""
-    per_window = (torch.cat(sums, dim=1).cpu().double().numpy() if sums
-                  else np.zeros((7, 0)))
+def _metrics(sums, reduction: str, k: int, n: int, n_dropped: int, mesh=None) -> Dict:
+    """Copy the per-window sums to the host once and add them exactly.  With
+    a mesh every rank's per-window sums are gathered first (every rank has
+    as many), so the ``fsum`` is over all windows whatever the mesh."""
+    local = torch.cat(sums, dim=1) if sums else None
+    if mesh is not None and local is not None:
+        local = all_gather_rows(local, mesh).transpose(0, 1).reshape(7, -1)
+    per_window = local.cpu().double().numpy() if local is not None else np.zeros((7, 0))
     ade, fde, miss, coll, nll, n_agents, n_win = (math.fsum(row) for row in per_window)
     n_agents = max(n_agents, 1.0)
     # ADE/FDE divide by the reduction's population; the rest are per agent.
@@ -282,6 +290,11 @@ def _metrics(sums, reduction: str, k: int, n: int, n_dropped: int) -> Dict:
         "n_agents": int(n_agents),
         "n_dropped": n_dropped,
     }
+
+
+def _round_to_mesh(bs: int, mesh) -> int:
+    """``bs`` rounded up to a multiple of the mesh's ranks."""
+    return bs if mesh is None else bs + (-bs) % mesh.size()
 
 
 def _warn_dropped(test_ds: WindowDataset) -> int:
@@ -371,9 +384,16 @@ def evaluate(model, stats: NormStats, test_ds: WindowDataset, k: int = 20,
     candidates (tta orthogonal views) and select K.  ``buckets``: agent
     capacities, e.g. (16, 32, 64); each window runs at the smallest that
     holds its agents, with its stream drawn at the full n_max, so the
-    metrics are the padded protocol's.  ``mesh`` is not ported."""
+    metrics are the padded protocol's.
+
+    ``mesh`` (``parallel.make_mesh``; every rank of it calls this alike):
+    the batch size is rounded up to a multiple of the mesh's ranks (the
+    default one first scaled by them, as in the JAX package), each rank runs
+    its rows of every batch, with each window's stream drawn from (seed,
+    window) alone, and the per-window sums are gathered across the mesh
+    before the exact sum, so every rank returns ``evaluate()``'s metrics."""
     if mesh is not None:
-        raise not_ported("evaluate(mesh=...)", "item 6, scale-out")
+        check_mesh(mesh)
     models = list(model) if isinstance(model, (list, tuple)) else [model]
     if len(models) == 0:
         raise ValueError("empty ensemble")
@@ -405,7 +425,8 @@ def evaluate(model, stats: NormStats, test_ds: WindowDataset, k: int = 20,
     bpe = _model_bytes_per_elem(model)
     if batch_size is None:
         batch_size = vmem_friendly_batch(k * oversample * ensemble * tta, test_ds.n_max,
-                                         bytes_per_elem=bpe)
+                                         bytes_per_elem=bpe) * (mesh.size() if mesh else 1)
+    batch_size = _round_to_mesh(batch_size, mesh)
     n_dropped = _warn_dropped(test_ds)
     device = model.device
     dstats = _device_stats(stats, device)
@@ -422,7 +443,7 @@ def evaluate(model, stats: NormStats, test_ds: WindowDataset, k: int = 20,
     buckets_used = None
     if buckets is None:
         _run_windows(sums, batch_fn_at(None), test_ds, np.arange(n), test_ds.n_max,
-                     batch_size, device)
+                     batch_size, device, mesh)
     else:
         n_cap = test_ds.n_max
         bks = sorted({int(b) for b in buckets if 0 < int(b) <= n_cap})
@@ -434,12 +455,13 @@ def evaluate(model, stats: NormStats, test_ds: WindowDataset, k: int = 20,
             sel = np.nonzero(route == bi)[0]
             if len(sel) == 0:
                 continue
-            bs = batch_size if explicit_batch else vmem_friendly_batch(
-                k * oversample * ensemble * tta, n_b, bytes_per_elem=bpe)
+            bs = batch_size if explicit_batch else _round_to_mesh(vmem_friendly_batch(
+                k * oversample * ensemble * tta, n_b, bytes_per_elem=bpe) * (
+                    mesh.size() if mesh else 1), mesh)
             _run_windows(sums, batch_fn_at(None if n_b == n_cap else n_cap), test_ds, sel,
-                         n_b, bs, device)
+                         n_b, bs, device, mesh)
     return {
-        **_metrics(sums, reduction, k, n, n_dropped),
+        **_metrics(sums, reduction, k, n, n_dropped, mesh),
         **({"sigma_scale": float(sigma_scale)} if sigma_scale != 1.0 else {}),
         **({"rollout": rollout} if rollout != "sample" else {}),
         **({"oversample": int(oversample)} if oversample > 1 else {}),

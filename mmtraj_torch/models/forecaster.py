@@ -416,12 +416,16 @@ class Forecaster(nn.Module):
                              f"got T={xy.shape[2]}")
         return xy[:, :, :To], xy[:, :, To:]
 
-    def loss(self, xy, mask, stats: NormStats, drop=None) -> torch.Tensor:
+    def loss(self, xy, mask, stats: NormStats, drop=None, agents=None) -> torch.Tensor:
         """Training objective on full windows xy (B, N, To+Tp, 2) -> scalar.
         GMM head: mixture NLL of the normalized target offsets; deterministic
         head: squared error on them.  Masked mean over valid agent-steps, the
         denominator at least 1.  ``drop``: (encoder, decoder) dropout masks
-        (``dropout_masks``), or None for no dropout."""
+        (``dropout_masks``), or None for no dropout.  ``agents``: the valid
+        agents the mean divides by (a 0-d float32 tensor), where the batch is
+        one rank's rows of a larger one (data parallelism: each rank's
+        numerator over the whole batch's denominator, summed across ranks);
+        by default this batch's."""
         xy, mask = self._tensor(xy), self._tensor(mask, torch.bool)
         xy_obs, xy_fut = self._split(xy, "loss")
         dxy_fut_n = normalize(to_relative(xy), stats)[:, :, self.obs_len:]
@@ -433,11 +437,12 @@ class Forecaster(nn.Module):
         else:
             per_step = ((outs - dxy_fut_n) ** 2).sum(-1)
         w = mask[..., None].to(torch.float32)
-        denom = torch.clamp_min(w.sum() * per_step.shape[-1], 1.0)
+        n = w.sum() if agents is None else agents
+        denom = torch.clamp_min(n * per_step.shape[-1], 1.0)
         return (per_step * w).sum() / denom
 
     def loss_variety(self, xy, mask, stats: NormStats, stream, n_samples: int, drop=None,
-                     fde_weight: float = 0.0) -> torch.Tensor:
+                     fde_weight: float = 0.0, agents=None) -> torch.Tensor:
         """Winner-takes-all objective -> scalar: each agent's smallest mean
         squared position error over ``n_samples`` sampled rollouts (plus
         ``fde_weight`` times its final-step squared error), masked mean over
@@ -445,7 +450,8 @@ class Forecaster(nn.Module):
         n_samples*B graphs; ``drop``: the encoder's dropout masks only (the
         rollout runs without dropout, as inference does).  Gradients flow
         through the chosen components' means and spreads and the whole
-        recurrence; the component choice gets none."""
+        recurrence; the component choice gets none.  ``agents`` as for
+        ``loss``."""
         xy, mask = self._tensor(xy), self._tensor(mask, torch.bool)
         xy_obs, gt = self._split(xy, "loss_variety")
         carry = self.encode(xy_obs, mask, stats, drop, train=True)
@@ -457,7 +463,7 @@ class Forecaster(nn.Module):
             err = err + fde_weight * sq[..., -1]
         best = err.amin(0)  # ties share the gradient, as JAX's min does
         w = mask.to(torch.float32)
-        return (best * w).sum() / torch.clamp_min(w.sum(), 1.0)
+        return (best * w).sum() / torch.clamp_min(w.sum() if agents is None else agents, 1.0)
 
     def _decode_fused(self, carry: Carry, xy_last, mask, stats: NormStats, stream):
         """The whole rollout in one ``fused_decode`` launch -> (Bk, N, T, 2),

@@ -31,7 +31,10 @@ Both kernels are ``torch.library`` custom ops, ``mmtraj::attend`` and
 is built or loaded then): the CPU implementation is ``attend_math``, the
 CUDA one launches the kernel, and the fake one gives the output's shape, so
 ``torch.export`` keeps each call as one node of its graph.  The wrappers
-call the ops on every device.
+call the ops on every device.  ``mmtraj::attend`` also has a vmap rule
+(the lanes folded into its graphs, one launch); ``attend_packed``, which
+has no backward and no training path, has none, and vmapping it raises
+torch's own error.
 """
 
 from __future__ import annotations
@@ -91,8 +94,16 @@ def _launch(name: str, v, s_src, s_dst, att, num_heads: int) -> torch.Tensor:
     return out
 
 
+def _requires_grad(t: torch.Tensor) -> bool:
+    """``t.requires_grad``, read through ``torch.func.vmap``'s wrappers: a
+    vmapped tensor reports False whatever the tensor it wraps records."""
+    while torch._C._functorch.is_batchedtensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t.requires_grad
+
+
 def _wants_grad(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    return torch.is_grad_enabled() and any(_requires_grad(t) for t in ts)
 
 
 @torch.library.custom_op("mmtraj::attend", mutates_args=(), device_types="cpu")
@@ -133,30 +144,68 @@ def _attend_fake(v, s_src, s_dst, att, num_heads):
 _attend_packed_op.register_fake(_attend_fake)
 
 
+@torch.library.register_vmap("mmtraj::attend")
+def _attend_vmap(info, in_dims, v, s_src, s_dst, att, num_heads):
+    """``mmtraj::attend`` under ``torch.func.vmap`` of S lanes: every input
+    with its lane axis first (an unbatched one expanded), the lanes folded
+    into the graphs of one launch, as JAX's batching rule folds them into
+    its grid."""
+    S = info.batch_size
+
+    def fold(t, dim):
+        t = t.movedim(dim, 0) if dim is not None else t.expand((S,) + t.shape)
+        return t.reshape((-1,) + t.shape[2:]).contiguous()
+
+    out = torch.ops.mmtraj.attend(*(fold(t, d) for t, d in zip((v, s_src, s_dst, att), in_dims)),
+                                  num_heads)
+    return out.reshape((S, -1) + out.shape[1:]), 0
+
+
 class _Attend(torch.autograd.Function):
-    """``mmtraj::attend`` forward with the JAX package's backward: autograd
+    """``mmtraj::attend`` forward with the JAX package's backward: the VJP
     of ``attend_math`` for v, s_src and s_dst on the saved inputs
-    (``mmtraj/ops/fused_attend.py:_bwd``); the 0/1 tile and ``num_heads``
-    get none, as in JAX.  There is no backward kernel.  On CPU tensors the
-    op's forward is ``attend_math`` itself (the CPU tests drive the Function
-    that way)."""
+    (``mmtraj/ops/fused_attend.py:_bwd``), taken by ``torch.func.vjp``; the
+    0/1 tile and ``num_heads`` get none, as in JAX.  There is no backward
+    kernel.  On CPU tensors the op's forward is ``attend_math`` itself (the
+    CPU tests drive the Function that way).  Written with a separate
+    ``setup_context`` and ``generate_vmap_rule``, so that it runs under
+    ``torch.func.vmap``."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, v, s_src, s_dst, att, num_heads):
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(v, s_src, s_dst, att)
+    def forward(v, s_src, s_dst, att, num_heads):
         return torch.ops.mmtraj.attend(v, s_src, s_dst, att, num_heads)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.num_heads = inputs[-1]
+        ctx.save_for_backward(*inputs[:-1])
+
+    @staticmethod
     def backward(ctx, g):
-        v, s_src, s_dst, att = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip((v, s_src, s_dst), ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = attend_math(*inputs, att, ctx.num_heads)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
-        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None, None)
+        needs = tuple(ctx.needs_input_grad[:3]) + (False,)  # the tile gets none
+        return _math_vjp(attend_math, ctx.saved_tensors, needs, ctx.num_heads, g)
+
+
+def _math_vjp(math_fn, saved, needs, num_heads: int, g):
+    """The gradients of ``math_fn(*saved, num_heads)`` for the saved inputs
+    that ``needs`` marks (None for the rest and for ``num_heads``), by
+    ``torch.func.vjp`` of the plain math: a backward that runs under
+    ``torch.func.vmap`` as well as on an ordinary autograd path."""
+    which = [i for i in range(len(saved)) if needs[i]]
+    if not which:
+        return (None,) * (len(saved) + 1)
+
+    def fn(*wanted):
+        args = list(saved)
+        for i, t in zip(which, wanted):
+            args[i] = t
+        return math_fn(*args, num_heads)
+
+    _, vjp = torch.func.vjp(fn, *(saved[i] for i in which))
+    grads = dict(zip(which, vjp(g)))
+    return tuple(grads.get(i) for i in range(len(saved))) + (None,)
 
 
 def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,

@@ -40,11 +40,6 @@ class Checkpoint(NamedTuple):
     opt_leaves: Optional[List[np.ndarray]] = None  # optax's flatten order; None if absent
 
 
-def not_ported(what: str, roadmap_item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mmtraj_torch yet (ROADMAP.md queue 1: {roadmap_item})")
-
-
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port cannot run,
     ``ValueError`` for one that does not exist."""

@@ -17,11 +17,14 @@ step, replayed M times, so the host pays its per-op dispatch once at
 capture; on the CPU the same steps eagerly.
 
 ``fit`` trains from a data directory with the window set resident on the
-device, in chunks where ``steps_per_dispatch > 1``, logs JSONL, checkpoints
-with the optimizer state (npz, the JAX package's layout) and evaluates
-through the port's ``evaluate``.  A resumed run replays the uninterrupted
-run's data order, draws and chunks, so it reaches the same parameters.  Not
-ported: streaming ingest and data parallelism (ROADMAP.md queue 1 item 6).
+device (or streamed from the host through a pinned prefetch), in chunks
+where ``steps_per_dispatch > 1``, logs JSONL, checkpoints with the optimizer
+state (npz, the JAX package's layout) and evaluates through the port's
+``evaluate``.  A resumed run replays the uninterrupted run's data order,
+draws and chunks, so it reaches the same parameters.  With a data-parallel
+mesh (``mmtraj_torch/parallel``) each rank trains on its rows of every
+batch and the gradients are summed across ranks.  A population of seeds
+trained as one vmapped step is ``mmtraj_torch/population.py``.
 """
 
 from __future__ import annotations
@@ -40,16 +43,16 @@ import torch
 from mmtraj_torch import checkpoint
 from mmtraj_torch.config import Config
 from mmtraj_torch.data.collate import WindowDataset
-from mmtraj_torch.data.pipeline import DeviceDataset
+from mmtraj_torch.data.pipeline import DeviceDataset, prefetch_to_device
 from mmtraj_torch.data.registry import load_split
 from mmtraj_torch.data.transforms import NormStats, augment_windows, compute_norm_stats
 from mmtraj_torch.evaluate import _device_stats, evaluate
 from mmtraj_torch.models.forecaster import Forecaster, dropout_masks
 from mmtraj_torch.ops import _build, launch_counters
-from mmtraj_torch.params import State, not_ported, save_npz
+from mmtraj_torch.parallel.mesh import all_reduce_sum, is_writer, make_mesh, shard_batch
+from mmtraj_torch.params import State, save_npz
 from mmtraj_torch.utils.logging import MetricsLogger
 
-ITEM6 = "item 6, scale-out"
 CAPTURE_WARMUP = 2  # eager steps on a side stream before a step's capture
 
 
@@ -129,13 +132,22 @@ class Optimizer:
     rate are computed on the device, so a step reads nothing back from it.
     ``state_leaves`` lays the state out as ``jax.tree.leaves`` of optax's
     state: the Adam count, every first moment, every second moment (both in
-    ``jax_order``), and the schedule's count under "cosine"."""
+    ``jax_order``), and the schedule's count under "cosine".
+
+    ``lanes=True`` (a population of seeds, ``mmtraj_torch/population.py``):
+    every parameter, gradient and moment carries a leading lane axis, and
+    each lane is its own run.  The clip's global norm is taken per lane,
+    over that lane's slices only (one norm over all lanes would couple the
+    seeds); Adam, the weight decay, the schedule and the counts are
+    elementwise or shared, as in the JAX package's vmapped optimizer.
+    ``state_leaves(lane)`` gives one lane's state in the layout above."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: Config):
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: Config, lanes: bool = False):
         self.names = jax_order(params)
         self.params = [params[k] for k in self.names]
+        self.lanes = lanes
         self.schedule = lr_schedule(cfg)
         self.cosine = cfg.train.lr_schedule == "cosine"
         self.clip = float(cfg.train.grad_clip)
@@ -156,7 +168,14 @@ class Optimizer:
         parameter's ``.grad``."""
         if grads is None:
             grads = [p.grad for p in self.params]
-        if self.clip > 0:
+        if self.clip > 0 and self.lanes:  # a norm a lane, over the lane's slices
+            sq = torch._foreach_mul(grads, grads)
+            g_norm = torch.sqrt(sum(t.flatten(1).sum(1) for t in sq))
+            norms = [g_norm.view((-1,) + (1,) * (g.ndim - 1)) for g in grads]
+            scaled = torch._foreach_div(grads, norms)
+            torch._foreach_mul_(scaled, self.clip)
+            grads = [torch.where(n < self.clip, g, s) for g, s, n in zip(grads, scaled, norms)]
+        elif self.clip > 0:
             g_norm = torch.sqrt(sum(torch.sum(gg) for gg in torch._foreach_mul(grads, grads)))
             keep = g_norm < self.clip
             scaled = torch._foreach_div(grads, g_norm)
@@ -185,17 +204,23 @@ class Optimizer:
         torch._foreach_mul_(u, step_size)
         torch._foreach_add_(self.params, u)
 
-    def state_leaves(self) -> List[np.ndarray]:
-        leaves = [self.count.cpu().numpy()]
-        leaves += [m.detach().cpu().numpy() for m in self.mu]
-        leaves += [v.detach().cpu().numpy() for v in self.nu]
+    def state_leaves(self, lane: Optional[int] = None) -> List[np.ndarray]:
+        """The state as optax's leaves, copies on the host; with lanes, lane
+        ``lane``'s."""
+        pick = (lambda t: t) if lane is None else (lambda t: t[lane])
+        leaves = [np.array(self.count.cpu())]
+        leaves += [np.array(pick(m).detach().cpu()) for m in self.mu]
+        leaves += [np.array(pick(v).detach().cpu()) for v in self.nu]
         if self.cosine:
-            leaves.append(self.schedule_count.cpu().numpy())
+            leaves.append(np.array(self.schedule_count.cpu()))
         return leaves
 
     @torch.no_grad()
     def load_state_leaves(self, leaves) -> None:
         """Copy a checkpoint's leaves into the state, in place."""
+        if self.lanes:
+            raise ValueError("a population's optimizer state loads lane by lane; it resumes "
+                             "no checkpoint")
         n = len(self.params)
         want = 1 + 2 * n + int(self.cosine)
         if len(leaves) != want:
@@ -229,6 +254,33 @@ class StepDraws(NamedTuple):
     def tensors(self) -> List[torch.Tensor]:
         masks = [m[k] for m in (self.drop or ()) for k in ("emb", "gat")]
         return [t for t in (self.theta, self.det, *masks, *(self.stream or ())) if t is not None]
+
+    def with_tensors(self, ts) -> "StepDraws":
+        """These draws with ``ts`` (in ``tensors()``'s order) in place of
+        their tensors."""
+        it = iter(ts)
+        return self.map(lambda _: next(it), lambda _: next(it))
+
+    def map(self, rows: Callable, stream: Callable) -> "StepDraws":
+        """``rows`` applied to every per-window tensor, ``stream`` to each of
+        the stream's two (laid out ``(variety_n * B, ...)``, row ``kk*B + b``),
+        in ``tensors()``'s order."""
+        theta, det = (None if t is None else rows(t) for t in (self.theta, self.det))
+        drop = None if self.drop is None else tuple({k: rows(m[k]) for k in ("emb", "gat")}
+                                                    for m in self.drop)
+        return StepDraws(theta, det, drop,
+                         None if self.stream is None else tuple(map(stream, self.stream)))
+
+
+def shard_draws(draws: StepDraws, mesh, variety_n: int) -> StepDraws:
+    """This rank's rows of a whole batch's draws: the per-window ones by
+    ``shard_batch``; the stream's ``(variety_n * B)`` rows, sample-major, as
+    ``(variety_n, B)`` with the rank's B rows of every sample."""
+    def stream(t):
+        lanes = shard_batch(t.reshape((variety_n, -1) + t.shape[1:]).transpose(0, 1), mesh)
+        return lanes.transpose(0, 1).reshape((-1,) + t.shape[1:])
+
+    return draws.map(lambda t: shard_batch(t, mesh), stream)
 
 
 def step_draws(model: Forecaster, seed: int, step: int, B: int, N: int, rotate: bool,
@@ -265,30 +317,40 @@ def step_draws(model: Forecaster, seed: int, step: int, B: int, N: int, rotate: 
 
 def objective(model: Forecaster, xy, mask, stats: NormStats, draws: StepDraws,
               loss_mode: str, variety_n: int, variety_weight: float = 1.0,
-              variety_fde_weight: float = 0.0) -> torch.Tensor:
+              variety_fde_weight: float = 0.0, agents=None) -> torch.Tensor:
     """The training loss of ``loss_mode`` on a batch (already augmented):
     "nll" (teacher-forced), "variety" (winner-takes-all over ``variety_n``
     rollouts, encoder dropout only) or "hybrid" (nll + ``variety_weight`` x
-    variety), as ``mmtraj/train.py:106-116``."""
+    variety), as ``mmtraj/train.py:106-116``.  ``agents``: the whole
+    batch's valid agents where ``xy`` is one rank's rows (``Forecaster.loss``)."""
     if loss_mode == "nll":
-        return model.loss(xy, mask, stats, draws.drop)
+        return model.loss(xy, mask, stats, draws.drop, agents)
     drop_enc = draws.drop[0] if draws.drop is not None else None
     lv = model.loss_variety(xy, mask, stats, draws.stream, variety_n, drop_enc,
-                            variety_fde_weight)
+                            variety_fde_weight, agents)
     if loss_mode == "hybrid":
-        return model.loss(xy, mask, stats, draws.drop) + variety_weight * lv
+        return model.loss(xy, mask, stats, draws.drop, agents) + variety_weight * lv
     return lv
 
 
 def _build_core(model: Forecaster, optimizer: Optimizer, stats: NormStats,
                 ema: Optional[Forecaster], ema_decay: float, augment_rotate: bool,
                 augment_flip: bool, seed: int, loss_mode: str, variety_n: int,
-                variety_weight: float, variety_fde_weight: float):
+                variety_weight: float, variety_fde_weight: float, mesh=None):
     """The one-step core that ``make_train_step`` and ``make_multi_train_step``
-    share -> (core, draw, state): ``core(xy, mask, draws)`` trains ``model``
-    in place on one batch and returns the detached loss; ``draw(step, B,
-    N)`` is the step's ``step_draws``; ``state`` every tensor a step
-    updates (parameters, optimizer state, EMA)."""
+    share -> (core, draw, state): ``core(xy, mask, draws, agents=None)``
+    trains ``model`` in place on one batch and returns the detached loss;
+    ``draw(step, B, N)`` is the step's ``step_draws``; ``state`` every tensor
+    a step updates (parameters, optimizer state, EMA).
+
+    With a ``mesh`` (data parallelism) the draws are the whole batch's and
+    the core takes this rank's rows of them; ``xy``/``mask`` are the whole
+    batch, of which it takes its rows too, or, where ``agents`` (the whole
+    batch's valid agents) is given, already this rank's rows.  The rank's
+    loss is its numerator over the whole batch's denominator, and the
+    gradients and the loss are summed across the mesh (one ``all_reduce``),
+    so every rank clips and updates with the whole batch's gradient: the
+    JAX package's step on the whole batch."""
     if loss_mode not in ("nll", "variety", "hybrid"):
         raise ValueError(f"unknown loss mode {loss_mode!r}")
     if loss_mode != "nll" and model.cfg.use_fused_decoder:
@@ -303,61 +365,88 @@ def _build_core(model: Forecaster, optimizer: Optimizer, stats: NormStats,
     def draw(step_idx: int, B: int, N: int) -> StepDraws:
         return step_draws(model, seed, step_idx, B, N, augment_rotate, augment_flip, n_var)
 
-    def core(xy, mask, draws: StepDraws) -> torch.Tensor:
+    def core(xy, mask, draws: StepDraws, agents=None) -> torch.Tensor:
+        if mesh is not None:
+            if agents is None:
+                agents = mask.sum().to(torch.float32)
+                xy, mask = shard_batch((xy, mask), mesh)
+            draws = shard_draws(draws, mesh, n_var)
         if draws.theta is not None:
             xy = augment_windows(xy, mask, draws.theta, draws.det)
         for p in params:
             p.grad = None
         loss = objective(model, xy, mask, stats, draws, loss_mode, variety_n, variety_weight,
-                         variety_fde_weight)
+                         variety_fde_weight, agents)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = loss.reshape(1).clone()
+            all_reduce_sum([p.grad for p in params] + [loss], mesh)
+            loss = loss[0]
         optimizer.step()
         if ema_params:  # d * ema + (1 - d) * params, as the JAX package rounds it
             with torch.no_grad():
                 torch._foreach_mul_(ema_params, d)
                 torch._foreach_add_(ema_params, torch._foreach_mul(params, 1.0 - d))
-        return loss.detach()
+        return loss
 
     return core, draw, params + optimizer.state() + ema_params
+
+
+def _global_rows(mask, agents, mesh) -> int:
+    """The whole batch's rows: ``mask``'s, or all ranks' where ``mask`` is
+    one rank's (``agents`` given)."""
+    return mask.shape[0] * (mesh.size() if mesh is not None and agents is not None else 1)
 
 
 def make_train_step(model: Forecaster, optimizer: Optimizer, stats: NormStats,
                     ema: Forecaster = None, ema_decay: float = 0.0,
                     augment_rotate: bool = False, augment_flip: bool = False, seed: int = 0,
                     loss_mode: str = "nll", variety_n: int = 8, variety_weight: float = 1.0,
-                    variety_fde_weight: float = 0.0):
-    """-> ``step(xy, mask, step_idx)``, which trains ``model`` in place on one
-    batch and returns the loss (a detached 0-d tensor on the device: reading
-    it waits for the device).  The step's draws come from ``step_draws(...,
-    step_idx, ...)``.  With ``ema`` (a Forecaster of the same configuration)
-    and ``ema_decay > 0`` it also moves ``ema``'s parameters to d * ema +
-    (1 - d) * params after the update.  Each parameter's ``.grad`` holds the
-    step's gradient afterwards."""
+                    variety_fde_weight: float = 0.0, mesh=None):
+    """-> ``step(xy, mask, step_idx, agents=None)``, which trains ``model``
+    in place on one batch and returns the loss (a detached 0-d tensor on the
+    device: reading it waits for the device).  The step's draws come from
+    ``step_draws(..., step_idx, ...)``.  With ``ema`` (a Forecaster of the
+    same configuration) and ``ema_decay > 0`` it also moves ``ema``'s
+    parameters to d * ema + (1 - d) * params after the update.  Each
+    parameter's ``.grad`` holds the step's gradient afterwards.
+
+    With a ``mesh`` (``parallel.make_mesh``) the step is data-parallel:
+    ``xy``/``mask`` are the whole batch (every rank passes the same), or
+    this rank's rows with ``agents`` the whole batch's valid agents; every
+    rank draws the whole batch's draws and takes its rows, and the
+    gradients are summed across the mesh (``_build_core``)."""
     core, draw, _ = _build_core(model, optimizer, stats, ema, ema_decay, augment_rotate,
                                 augment_flip, seed, loss_mode, variety_n, variety_weight,
-                                variety_fde_weight)
+                                variety_fde_weight, mesh)
 
-    def step(xy, mask, step_idx: int = 0) -> torch.Tensor:
-        return core(xy, mask, draw(step_idx, *mask.shape))
+    def step(xy, mask, step_idx: int = 0, agents=None) -> torch.Tensor:
+        draws = draw(step_idx, _global_rows(mask, agents, mesh), mask.shape[1])
+        return core(xy, mask, draws, agents)
 
     return step
 
 
 class _GraphedStep:
     """One training step captured as a CUDA graph over static slots: the
-    batch's window indices, the step's draws, and the loss it writes.  The
-    parameters, the optimizer state, the EMA and the gradients are the
-    graph's own tensors, updated in place at every replay."""
+    batch's window indices (of shape ``idx_shape``), the step's draws, and
+    the loss it writes.  The parameters, the optimizer state, the EMA and
+    the gradients are the graph's own tensors, updated in place at every
+    replay.  ``core(xy, mask, draws)`` gets the rows of the indices, shaped
+    ``idx_shape + xy_all.shape[1:]``."""
 
-    def __init__(self, core, draw, state, params, xy_all, mask_all, B: int, first_step: int):
+    def __init__(self, core, draws: StepDraws, state, params, xy_all, mask_all, idx_shape):
         dev = xy_all.device
-        self.key = (xy_all.data_ptr(), mask_all.data_ptr(), tuple(xy_all.shape), B)
-        self.idx = torch.zeros(B, dtype=torch.int64, device=dev)
-        self.draws = draw(first_step, B, mask_all.shape[1])  # fresh tensors: the slots
+        idx_shape = tuple(idx_shape)
+        self.key = self.key_of(xy_all, mask_all, idx_shape)
+        self.idx = torch.zeros(idx_shape, dtype=torch.int64, device=dev)
+        self.draws = draws  # fresh tensors: the slots
 
         def run():
-            xy = xy_all.index_select(0, self.idx)
-            mask = mask_all.index_select(0, self.idx)
+            flat = self.idx.reshape(-1)
+            xy = xy_all.index_select(0, flat).reshape(idx_shape + xy_all.shape[1:])
+            mask = mask_all.index_select(0, flat).reshape(idx_shape + mask_all.shape[1:])
             return core(xy, mask, self.draws)
 
         _build.build()  # every kernel built (and loaded) before capture
@@ -365,7 +454,9 @@ class _GraphedStep:
         with torch.no_grad():
             snapshot = [t.detach().clone() for t in state]
         # Warm-up on a side stream, as capture requires; it trains, so the
-        # state is restored after capture (which itself runs nothing).
+        # state is restored after capture (which itself runs nothing).  A
+        # data-parallel step's first all_reduce also sets up its NCCL
+        # communicator here, outside the capture.
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -395,6 +486,12 @@ class _GraphedStep:
         self.params = params
         self.grads = [p.grad for p in params]
 
+    @staticmethod
+    def key_of(xy_all, mask_all, idx_shape) -> tuple:
+        """What a capture depends on: the window set's tensors and the
+        indices' shape."""
+        return xy_all.data_ptr(), mask_all.data_ptr(), tuple(xy_all.shape), tuple(idx_shape)
+
     def replay(self, idx: torch.Tensor, draws: StepDraws) -> torch.Tensor:
         self.idx.copy_(idx)
         for slot, t in zip(self.draws.tensors(), draws.tensors()):
@@ -403,11 +500,32 @@ class _GraphedStep:
         return self.loss
 
 
+def run_chunk(graphed: list, make, model, params, xy_all, mask_all, idx_chunk: np.ndarray,
+              step_ids, draw_step) -> torch.Tensor:
+    """Replay a chunk of steps from the one captured step in ``graphed``
+    (captured anew by ``make()`` when the window set or the index shape
+    changed): step k's indices ``idx_chunk[k]`` and draws ``draw_step(s)``
+    go into the slots before its replay.  -> the losses, stacked (a device
+    tensor); the parameters' ``.grad`` then hold the last step's gradient."""
+    if not graphed or graphed[0].key != _GraphedStep.key_of(xy_all, mask_all,
+                                                            idx_chunk.shape[1:]):
+        graphed[:] = [make()]
+    g = graphed[0]
+    idx_dev = torch.from_numpy(idx_chunk).pin_memory().to(model.device, non_blocking=True)
+    losses = torch.empty((len(step_ids),) + g.loss.shape, device=model.device)
+    for k, s in enumerate(step_ids):
+        losses[k].copy_(g.replay(idx_dev[k], draw_step(s)))
+    for p, grad in zip(params, g.grads):
+        p.grad = grad
+    return losses
+
+
 def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormStats,
                           ema: Forecaster = None, ema_decay: float = 0.0,
                           augment_rotate: bool = False, augment_flip: bool = False,
                           seed: int = 0, loss_mode: str = "nll", variety_n: int = 8,
-                          variety_weight: float = 1.0, variety_fde_weight: float = 0.0):
+                          variety_weight: float = 1.0, variety_fde_weight: float = 0.0,
+                          mesh=None):
     """M training steps per host dispatch (``TrainConfig.steps_per_dispatch``;
     ``mmtraj/train.py:155-231``) -> ``multi(xy_all, mask_all, idx_chunk,
     step_ids)``: the window set on the device (``DeviceDataset.xy``/``.mask``),
@@ -425,6 +543,9 @@ def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormSt
     replay, step k's indices and its draws (made by ``step_draws`` on the
     device) are copied into the graph's slots.  Nothing in a chunk waits for
     the device.  A capture that fails raises; nothing falls back to eager.
+    With a ``mesh`` the indices are the whole batch's, every rank passes
+    the same, and the graph holds the gradients' ``all_reduce`` (NCCL
+    supports capture; gloo, on the CPU, runs the chunk eagerly).
 
     The gradients come from the graph's memory pool; after a chunk each
     parameter's ``.grad`` holds its last step's gradient.
@@ -435,7 +556,7 @@ def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormSt
     capture; empty before the first capture)."""
     core, draw, state = _build_core(model, optimizer, stats, ema, ema_decay, augment_rotate,
                                     augment_flip, seed, loss_mode, variety_n, variety_weight,
-                                    variety_fde_weight)
+                                    variety_fde_weight, mesh)
     params = list(model.parameters())
     graphed: List[_GraphedStep] = []
     capture_launches: Dict[str, int] = {}
@@ -452,20 +573,16 @@ def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormSt
             for idx, s in zip(torch.from_numpy(idx_chunk), step_ids):
                 losses.append(core(xy_all[idx], mask_all[idx], draw(s, B, N)))
             return torch.stack(losses)
-        key = (xy_all.data_ptr(), mask_all.data_ptr(), tuple(xy_all.shape), B)
-        if not graphed or graphed[0].key != key:
-            graphed[:] = [_GraphedStep(core, draw, state, params, xy_all, mask_all, B,
-                                       step_ids[0])]
+
+        def make():
+            g = _GraphedStep(core, draw(step_ids[0], B, N), state, params, xy_all, mask_all,
+                             (B,))
             capture_launches.clear()
-            capture_launches.update(graphed[0].launches)
-        g = graphed[0]
-        idx_dev = torch.from_numpy(idx_chunk).pin_memory().to(model.device, non_blocking=True)
-        losses = torch.empty(M, device=model.device)
-        for k, s in enumerate(step_ids):
-            losses[k].copy_(g.replay(idx_dev[k], draw(s, B, N)))
-        for p, grad in zip(params, g.grads):
-            p.grad = grad
-        return losses
+            capture_launches.update(g.launches)
+            return g
+
+        return run_chunk(graphed, make, model, params, xy_all, mask_all, idx_chunk, step_ids,
+                         lambda s: draw(s, B, N))
 
     multi.capture_launches = capture_launches
     return multi
@@ -477,16 +594,63 @@ def _check_supported(cfg: Config) -> None:
     if cfg.train.stream and cfg.train.steps_per_dispatch > 1:
         raise ValueError("steps_per_dispatch > 1 requires resident ingest (stream=False): a "
                          "chunk gathers its batches on the device from the resident window set")
-    if cfg.train.stream:
-        raise not_ported("train --stream (a pinned, double-buffered prefetch)", ITEM6)
-    if cfg.train.data_parallel:
-        raise not_ported("train --data-parallel", ITEM6)
+
+
+def data_mesh(cfg: Config, mesh, device):
+    """The data-parallel mesh of a run: ``mesh``, else a new one where
+    ``cfg.train.data_parallel``, else None; the batch must split over it."""
+    if mesh is None and cfg.train.data_parallel:
+        mesh = make_mesh(device=device)
+    if mesh is not None and cfg.train.batch_size % mesh.size():
+        raise ValueError(f"data_parallel needs a batch size that divides over the mesh "
+                         f"({cfg.train.batch_size} % {mesh.size()} != 0)")
+    return mesh
+
+
+def index_stream(device_ds: DeviceDataset, batch_size: int, seed: int, start_epoch: int = 0,
+                 skip: int = 0):
+    """The batches' window indices of a run, endlessly: epoch e's
+    ``(seed, e)`` permutation (``DeviceDataset.epoch_indices``), from epoch
+    ``start_epoch`` with its first ``skip`` batches skipped."""
+    e, sk = start_epoch, skip
+    while True:
+        rng = np.random.default_rng([seed, e])
+        yield from itertools.islice(device_ds.epoch_indices(batch_size, rng), sk, None)
+        e, sk = e + 1, 0
+
+
+def batch_source(cfg: Config, train_ds: WindowDataset, device_ds: Optional[DeviceDataset],
+                 idx_iter, start_epoch: int, skip: int, device, mesh=None):
+    """The batches of ``fit``'s per-step path, as (xy, mask, agents) on the
+    device: resident, the rows of the next index of ``idx_iter`` gathered on
+    the device (the whole batch; ``agents`` None); streamed
+    (``cfg.train.stream``), the host's ``WindowDataset.epoch_batches`` of the
+    same ``(seed, epoch)`` permutation from epoch ``start_epoch``, its first
+    ``skip`` batches skipped, through ``prefetch_to_device``.  With a mesh a
+    streamed batch is this rank's rows, and ``agents`` the whole batch's
+    valid agents, counted on the host."""
+    if not cfg.train.stream:
+        return ((*device_ds.batch(idx), None) for idx in idx_iter)
+
+    def host():
+        e, sk = start_epoch, skip
+        while True:
+            rng = np.random.default_rng([cfg.train.seed, e])
+            for xy, mask in itertools.islice(
+                    train_ds.epoch_batches(cfg.train.batch_size, rng), sk, None):
+                yield (xy, mask, np.float32(mask.sum())) if mesh is not None else (xy, mask)
+            e, sk = e + 1, 0
+
+    batches = prefetch_to_device(host(), size=2, device=device, mesh=mesh)
+    if mesh is not None:
+        return batches
+    return ((xy, mask, None) for xy, mask in batches)
 
 
 def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLogger] = None,
-        resume: bool = False, device="cuda") -> TrainResult:
+        resume: bool = False, device="cuda", mesh=None) -> TrainResult:
     """Train per the config (the entry point behind ``cli train``), the JAX
-    package's ``fit`` in resident mode.
+    package's ``fit``.
 
     With ``steps_per_dispatch`` M > 1, full chunks of M steps run through
     ``make_multi_train_step`` (a CUDA graph on the card) and a ragged tail
@@ -497,8 +661,25 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
     (and the EMA from ``checkpoint_ema.npz``) and goes on: the data order is
     a function of (seed, epoch) and the draws of (seed, step), and the
     batches the interrupted run consumed are skipped, so the resumed run
-    reaches the uninterrupted run's parameters."""
+    reaches the uninterrupted run's parameters.
+
+    Ingest: resident (the window set on the device, a gather a batch), or
+    with ``cfg.train.stream`` streamed: the host's batches of the same
+    permutation, pinned and copied ahead on a side stream
+    (``data.pipeline.prefetch_to_device``), so the losses are the resident
+    run's.  ``stream`` needs ``steps_per_dispatch`` 1.
+
+    Data parallelism (``cfg.train.data_parallel``, or a ``mesh`` from
+    ``parallel.make_mesh``): every rank of the mesh runs this with the same
+    configuration; each step trains on the rank's rows of the whole batch
+    and sums the gradients across the mesh, so the parameters follow the
+    single-process run (``make_train_step``).  Resident, every rank holds
+    the window set and gathers the whole batch; streamed, each rank
+    prefetches its own rows.  Rank 0 writes the checkpoints and the metrics
+    log; every rank returns the same result."""
     _check_supported(cfg)
+    mesh = data_mesh(cfg, mesh, device)
+    writer = is_writer(mesh)
     data_dir = data_dir or cfg.data.data_dir
     t_setup = time.time()
     train_w, test_w = load_split(data_dir, cfg.data.scene, cfg.data.obs_len, cfg.data.pred_len,
@@ -522,7 +703,7 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
     else:
         model = Forecaster(cfg.model, obs_len, pred_len, device=device,
                            generator=torch.Generator().manual_seed(cfg.train.seed))
-    device_ds = DeviceDataset(train_ds, model.device)
+    device_ds = None if cfg.train.stream else DeviceDataset(train_ds, model.device)
     optimizer = make_optimizer(cfg, model)
     if opt_leaves is not None:
         optimizer.load_state_leaves(opt_leaves)
@@ -534,12 +715,12 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
     step_kw = dict(augment_rotate=cfg.train.augment_rotate, augment_flip=cfg.train.augment_flip,
                    seed=cfg.train.seed, loss_mode=cfg.train.loss, variety_n=cfg.train.variety_n,
                    variety_weight=cfg.train.variety_weight,
-                   variety_fde_weight=cfg.train.variety_fde_weight)
+                   variety_fde_weight=cfg.train.variety_fde_weight, mesh=mesh)
     step_fn = make_train_step(model, optimizer, stats, ema, ema_decay, **step_kw)
     multi_fn = (make_multi_train_step(model, optimizer, stats, ema, ema_decay, **step_kw)
                 if cfg.train.steps_per_dispatch > 1 else None)
 
-    logger = logger or MetricsLogger(cfg.train.out_dir)
+    logger = logger or MetricsLogger(cfg.train.out_dir if writer else None, quiet=not writer)
     logger.log(
         start_step,
         event="setup" if start_step == 0 else "resume",
@@ -547,7 +728,7 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
         test_windows=len(test_ds) if test_ds else 0,
         dropped_agents=train_ds.n_dropped,
         params=sum(p.numel() for p in model.parameters()),
-        devices=1,
+        devices=mesh.size() if mesh is not None else 1,
         device=str(model.device),
         setup_s=round(time.time() - t_setup, 2),
     )
@@ -564,6 +745,8 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
         logger.log(s, loss=lv, steps_per_sec=round(sps, 2))
 
     def _save(s: int):
+        if not writer:
+            return
         save_npz(ckpt_path, model.state_dict(), stats, cfg, s, optimizer.state_leaves())
         logger.log(s, event="checkpoint", path=ckpt_path)
         if ema is not None:
@@ -575,7 +758,7 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
         last_eval_step = s
         eval_metrics = evaluate(ema if ema is not None else model, stats, test_ds,
                                 cfg.train.k_samples, batch_size=min(cfg.train.batch_size, 64),
-                                seed=cfg.train.seed)
+                                seed=cfg.train.seed, mesh=mesh)
         logger.log(s, **{f"eval_{k}": v for k, v in eval_metrics.items()})
 
     def _maybe_ckpt_and_eval(s: int):
@@ -587,14 +770,7 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
     # The data order is a function of (seed, epoch): a resumed run rebuilds
     # its epoch's permutation and skips the batches already consumed.
     batches_per_epoch = max(1, math.ceil(train_ds.n_windows / cfg.train.batch_size))
-
-    def index_stream():
-        e, sk = divmod(start_step, batches_per_epoch)
-        while True:
-            rng = np.random.default_rng([cfg.train.seed, e])
-            yield from itertools.islice(device_ds.epoch_indices(cfg.train.batch_size, rng),
-                                        sk, None)
-            e, sk = e + 1, 0
+    start_epoch, skip = divmod(start_step, batches_per_epoch)
 
     def next_boundary(s: int) -> int:
         """The next step that checkpoints, evaluates or ends the run."""
@@ -608,27 +784,35 @@ def fit(cfg: Config, data_dir: Optional[str] = None, logger: Optional[MetricsLog
     # Full chunks of steps_per_dispatch steps run through multi_fn; a ragged
     # tail up to the next boundary runs step by step, as in the JAX package.
     spd = cfg.train.steps_per_dispatch
-    idx_iter = index_stream()
-    while step < cfg.train.steps:
-        m = min(spd, next_boundary(step) - step)
-        if m == spd > 1:
-            idx_chunk = np.stack([next(idx_iter) for _ in range(m)])
-            losses = multi_fn(device_ds.xy, device_ds.mask, idx_chunk, range(step, step + m))
-            to_log = [t for t in range(step + 1, step + m + 1)
-                      if t % cfg.train.log_every == 0 or t == start_step + 1]
-            if to_log:  # one fetch from the device a logged chunk
-                lv = losses.cpu().numpy()
-                for t in to_log:
-                    _log(t, float(lv[t - step - 1]))
-            step += m
-        else:
-            for _ in range(m):
-                xy, mask = device_ds.batch(next(idx_iter))
-                loss = step_fn(xy, mask, step)
-                step += 1
-                if step % cfg.train.log_every == 0 or step == start_step + 1:
-                    _log(step, float(loss))
-        _maybe_ckpt_and_eval(step)
+    idx_iter = None if cfg.train.stream else index_stream(device_ds, cfg.train.batch_size,
+                                                          cfg.train.seed, start_epoch, skip)
+    batches = batch_source(cfg, train_ds, device_ds, idx_iter, start_epoch, skip, model.device,
+                           mesh)
+    try:
+        while step < cfg.train.steps:
+            m = min(spd, next_boundary(step) - step)
+            if m == spd > 1:
+                idx_chunk = np.stack([next(idx_iter) for _ in range(m)])
+                losses = multi_fn(device_ds.xy, device_ds.mask, idx_chunk,
+                                  range(step, step + m))
+                to_log = [t for t in range(step + 1, step + m + 1)
+                          if t % cfg.train.log_every == 0 or t == start_step + 1]
+                if to_log:  # one fetch from the device a logged chunk
+                    lv = losses.cpu().numpy()
+                    for t in to_log:
+                        _log(t, float(lv[t - step - 1]))
+                step += m
+            else:
+                for _ in range(m):
+                    xy, mask, agents = next(batches)
+                    loss = step_fn(xy, mask, step, agents)
+                    step += 1
+                    if step % cfg.train.log_every == 0 or step == start_step + 1:
+                        _log(step, float(loss))
+            _maybe_ckpt_and_eval(step)
+    finally:
+        if hasattr(batches, "close"):
+            batches.close()  # a streamed run stops its producer thread
 
     # The final eval is at the last step's parameters, not a periodic one.
     if test_ds is not None and last_eval_step != step:

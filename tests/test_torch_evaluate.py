@@ -311,7 +311,9 @@ def test_evaluate_guards_match_jax(case, setup):
 
 
 def test_evaluate_unported_options_raise(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: item 6"):
+    """``mesh=`` takes a ``DeviceMesh`` (``mmtraj_torch.parallel.make_mesh``);
+    anything else is a ``TypeError``."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ev.evaluate(setup["model"], NormStats(MEAN, STD), setup["ds"], mesh=object())
     other = Forecaster(ModelConfig(**SMALL, num_mixtures=3), TO, TP, device="cpu",
                        generator=torch.Generator().manual_seed(0))

@@ -222,12 +222,13 @@ def test_cli_eval_prints_the_jax_line(flags, setup, tmp_path, monkeypatch, capsy
 
 
 @pytest.mark.parametrize("flags, error, match", [
-    (["--data-parallel"], NotImplementedError, "ROADMAP.md queue 1: item"),
+    (["--data-parallel"], CheckpointError, "missing.npz"),
     (["--ckpt", "model.pt"], CheckpointError, "model.pt"),
 ], ids=["data-parallel", "torch-checkpoint"])
 def test_cli_unported_options_raise(flags, error, match):
-    """``--data-parallel`` is not ported; a .pt checkpoint is read, so a
-    missing one is a CheckpointError naming it."""
+    """A missing checkpoint is a CheckpointError naming it, with
+    ``--data-parallel`` too (which runs: ``test_torch_parallel.py``), and for
+    a .pt checkpoint, which is read."""
     argv = ["eval", "--ckpt", "missing.npz", "--device", "cpu"] + flags
     with pytest.raises(error, match=match):
         cli.main(argv)

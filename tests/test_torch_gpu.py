@@ -28,6 +28,7 @@ from mmtraj_torch.ops import fused_attend, fused_decoder, fused_gat
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import kernel_inputs  # noqa: E402  (the inputs tools/kernel_times.py times)
+import torch_exit_check  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -137,6 +138,29 @@ def test_gat_kernel_matches_plain(cuda, n, d, heads, hd, b, padded):
         assert torch.equal(got[rows], args[6].expand_as(got[rows]))
 
 
+@pytest.mark.parametrize("s, b, n", [(5, 16, 64), (3, 2, 100), (2, 1, 8)])
+def test_gat_lanes_kernel_matches_plain(cuda, s, b, n):
+    """S lanes with their own weights in one launch of the GAT kernel,
+    against ``gat_math`` lane by lane; under ``torch.func.vmap``
+    ``fused_gat`` reaches it once for all lanes."""
+    rng = np.random.default_rng(s * n)
+    d, heads, hd, dout = 64, 4, 64, 64
+    h = torch.stack([_t(rng, b, n, d) for _ in range(s)])
+    att = torch.stack([_attend_tile(rng, b, n, cuda) for _ in range(s)])
+    ws = [torch.stack([_t(rng, *shape, scale=0.3) for _ in range(s)]) for shape in (
+        (d, hd), (heads, hd // heads), (heads, hd // heads), (hd, dout), (dout,))]
+    before = (fused_gat.fused_gat.launches, fused_gat.fused_gat_lanes.launches)
+    got = fused_gat.fused_gat_lanes(h, att, *ws, heads)
+    vmapped = torch.func.vmap(lambda *a: fused_gat.fused_gat(*a, heads))(h, att, *ws)
+    torch.cuda.synchronize()
+    assert (fused_gat.fused_gat.launches, fused_gat.fused_gat_lanes.launches) == (
+        before[0] + 2, before[1] + 2)
+    want = torch.stack([fused_gat.gat_math(h[i], att[i], *(w[i] for w in ws), heads)
+                        for i in range(s)])
+    torch.testing.assert_close(got, want, **KERNEL)
+    assert torch.equal(vmapped, got)
+
+
 def _model(device, **flags):
     cfg = ModelConfig(hidden_dim=32, embed_dim=32, num_heads=4, **flags)
     return Forecaster(cfg, 8, 12, device=device, generator=torch.Generator().manual_seed(0))
@@ -236,3 +260,10 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         big = _t(rng, 1, 300, 16)
         fused_attend.attend(big, _t(rng, 1, 300, 2), _t(rng, 1, 300, 2),
                             _attend_tile(rng, 1, 300, cuda), 2)
+
+
+def test_prefetch_close_lets_the_process_exit_cleanly(cuda):
+    # Pinned copies on a side stream: a producer still in one when the
+    # interpreter exits aborts the process (exit 134).
+    for r in torch_exit_check.exit_after_close("cuda", runs=3):
+        assert torch_exit_check.clean(r), (r.returncode, r.stderr[-2000:])
