@@ -31,7 +31,7 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    ``attend`` launch counts, against the plain route on the same stream;
    ``attend`` on the inputs those runs gave it; the dense-crowd benchmark
    (``mmtraj_torch.benchmarks.rollout_bench``) end to end, "auto" and
-   "xla" in turns, and a short ``op_sweep``;
+   "xla", and a short ``op_sweep``;
 7. one JSON line with every kernel's launches (summed over the main-path
    runs, each counted from 0; ``attend_packed``, which no ``rollout_k``
    reaches, from its own path, the op sweep), error, times, occupancy and
@@ -43,7 +43,7 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    57 agents, N_max = 64), norm stats from the other four scenes: a route-A
    checkpoint written by ``save_npz`` scored by ``mmtraj_torch.cli eval``,
    whose line must equal ``evaluate()``'s; route A against the plain route
-   on the whole scene in turns (min-ADE/FDE within 1e-2 m, NLL within 1e-5
+   on the whole scene (min-ADE/FDE within 1e-2 m, NLL within 1e-5
    relative), with windows/s; exact launches a batch for route A,
    ``rollout="modes"`` and "auto" at N_max = 128; batch-size and bucket
    invariance and every pooled protocol on the first 300 windows;
@@ -68,7 +68,7 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    EMA: ``FIT_STEPS`` steps uninterrupted, and the same run cut at a
    checkpoint halfway and resumed, which must end bit-identical, with the
    loss descending and the final eval finite; ``train_bench`` steps/s of
-   the plain route and ``use_pallas`` in turns, for nll and variety;
+   the plain route and ``use_pallas``, for nll and variety;
 11. (run before 7's line) the rest of single-device training at the same
    width and batch: ``CHUNK_STEPS`` steps in chunks of ``CHUNK_M``, each
    step a replay of a CUDA graph (``make_multi_train_step``), against as
@@ -76,10 +76,11 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    for nll and variety, plain and ``use_pallas`` (losses within 1e-5
    relative, parameters within ``PARAM_TOL``, exact ``fused_gat`` launches
    at capture); ``fit`` in chunks of ``CHUNK_M`` cut and resumed
-   (bit-identical), with the loss descending; ``train_bench`` per step and
-   in chunks in turns, and the graphed step's profile; the attention
-   encoder's training, ``use_pallas`` against plain; the remat policies'
-   gradients against "full", their peak memory and steps/s at
+   (bit-identical), with the loss descending; ``train_bench`` in chunks
+   (the same step per step is phase 10's ``use_pallas`` row), and the
+   graphed step's profile; the attention encoder's training, ``use_pallas``
+   against plain; the remat policies' gradients against "full", their peak
+   memory and steps/s at
    ``REMAT_BATCHES``; the LSTM with the social GAT, ``use_pallas`` against
    plain, three steps and a rollout.  The wrappers count Python calls, so a
    chunk counts its warm-up steps and its capture, and its replays nothing;
@@ -97,7 +98,7 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    turns; training under bf16 (three steps of nll and variety,
    ``use_pallas`` against plain: the first step's loss within 1e-5, later
    ones within ``BF16_LATER_LOSS_RTOL``; one graphed chunk against eager steps,
-   ``train_bench`` bf16 and float32 in turns); a route-A checkpoint saved
+   ``train_bench`` bf16 and float32); a route-A checkpoint saved
    as ``.pt``, converted to ``.npz`` by ``python -m mmtraj_torch.cli
    convert``, both scored by ``cli eval`` with identical lines, and ``cli
    eval --dtype bfloat16`` of route A and plain checkpoints on the first
@@ -118,16 +119,34 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
 
 14. (run before 7's line) scale-out at config 4's full width:
    ``fused_gat_lanes`` (the GAT kernel over 5 lanes of weights in one launch)
-   against its plain version at (5, 16, 64, 64); a population of 5 seeds
-   (B = 16 each, ``use_pallas``, chunks of ``CHUNK_M`` replayed from a CUDA
-   graph) with exact launches a population step (20 ``fused_gat``, each a
-   lane-batched ``fused_gat_lanes``), each lane's losses over 20 steps
-   against a sequential graphed run of its seed, seed-steps/s of both and
-   the peak memory, and ``fit_population`` end to end on the in-repo data;
+   against its plain version at (5, 16, 64, 64), each lane equal to a single
+   ``fused_gat`` launch on its graphs and weights to the bit; a population
+   of 5 seeds (B = 16 each, ``use_pallas``, chunks of ``CHUNK_M`` replayed
+   from a CUDA graph) with exact launches a population step (20
+   ``fused_gat``, each a lane-batched ``fused_gat_lanes``), each lane's
+   losses over 20 steps against a sequential graphed run of its seed,
+   seed-steps/s of both and the peak memory, and ``fit_population`` end to
+   end on the in-repo data;
    config 5 (B = 256, ``use_pallas``) data-parallel over NCCL at world
    size 1: graphed chunks and ``fit`` equal to the bit to the runs without
    a mesh, ``evaluate(mesh=)`` equal to ``evaluate()``; ``fit(stream=True)``
    equal to the resident ``fit``, and ``stream_bench`` at a reduced size.
+15. (run before 7's line) the leave-one-out protocol and its tools at
+   config 4's full width, through ``python -m mmtraj_torch.cli``:
+   ``generate-data --seed 0 --n-frames 3000`` byte-equal to
+   ``data/synthetic3000`` and ``baseline --scene all`` for cv and zv (child
+   processes beside the card's work); ``train --scene all --use-pallas
+   --seeds 0 1 --vmap-seeds`` on a small synthetic tree (``LOO_FRAMES``
+   frames a scene, ``LOO_STEPS`` steps a fold in chunks of ``LOO_M``) with
+   exact launches and the mean±std table; ``eval-loo`` plain and
+   ``--ensemble`` with exact launches, one fold's metrics equal to ``cli
+   eval`` of its checkpoint to the bit; one eager fold under ``--profile``
+   whose trace holds exactly as many ``gat_kernel`` events as ``fused_gat``
+   launches were counted, ``profile-stats`` on it, and the same fold under
+   ``--debug-nans`` in eager chunks equal to it to the bit; the occupancy
+   bench (routes plain and A at N = 16, 32, 64) and its evaluate wall on
+   ``mixed`` (bucketed ADE within 1e-5 m of padded, exact launches); and
+   ``mmtraj_torch.entry.entry()``'s loss.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -167,13 +186,19 @@ MAX_DIVERGED = 0.01  # share of (window, sample) rollouts allowed past ROLLOUT_T
 EVAL_DATA = Path(__file__).resolve().parent / "data" / "synthetic3000"
 EVAL_SUB = 300  # windows of the invariance and protocol checks
 SERVE_B = 64  # phase 13: the second artifact's batch (the first's is B)
+# Phase 9: windows of the bench's two numpy denominators (its defaults: 64 and 6),
+# and calls a timing trial (its default: a second's worth).
+BENCH_HOST_BATCH, BENCH_REF_ITERS, BENCH_ITERS = 16, 2, 20
+# Phases 10 and 12: the fewest steps train_bench times (its default 30); its
+# min_seconds sets the length.
+TRAIN_BENCH_ITERS = 3
 EVAL_ADE_TOL = 1e-2  # meters, route A against plain on the whole scene
 EVAL_NLL_RTOL = 1e-5
 EVAL_INVARIANCE_RTOL = 1e-5
 GRAPH_TOL = 1e-6  # meters: rollout_k replayed from a CUDA graph against eager, one stream
 TRAIN_STEPS, VARIETY_N, FIT_STEPS = 3, 8, 60
 CHUNK_M, CHUNK_STEPS = 10, 20  # phase 11: steps a dispatch, steps against eager
-REMAT_BATCHES = (16, 128)
+REMAT_BATCHES = (16,)
 REMAT_GRAD_RTOL = 1e-5  # a policy's step-1 gradients against "full", of each leaf's largest
 TRAIN_LOSS_RTOL = 1e-5
 # Phase 11's attention encoder after its first update: Adam moves the elements
@@ -197,6 +222,11 @@ POP_SEEDS, POP_STEPS = (0, 1, 2, 3, 4), 20
 C5_STEPS, C5_FIT_STEPS = 20, 20  # config 5: graphed steps, fit steps
 STREAM_STEPS = 10
 STREAM_BENCH_WINDOWS, STREAM_BENCH_B, STREAM_BENCH_STEPS = 2000, 256, 10
+# Phase 15: the leave-one-out tree's synthetic frames a scene, steps a fold, chunk
+# and seeds; the profiled fold's held-out scene and steps; the occupancy bench.
+LOO_FRAMES, LOO_STEPS, LOO_M, LOO_SEEDS = 120, 20, 10, (0, 1)
+PROFILE_SCENE, PROFILE_STEPS = "eth", 2
+OCC_ITERS, OCC_WALL_WINDOWS = 20, 300
 # Phase 12 (bf16): a kernel route's step against the plain route's from the
 # same state, of the new hidden state's largest |value|; best-of-K ADE/FDE of
 # two bf16 routes, meters.
@@ -351,9 +381,9 @@ def evaluator_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted, z
     check(code == 0 and counts == want, f"cli eval: exit {code}, launches {counts}, want {want}")
     nums = dict(_LINE_NUMS.findall(line))
 
-    # 2. Route A and the plain route on the whole scene, in turns.
+    # 2. Route A and the plain route on the whole scene.
     runs = {"A": [], "plain": []}
-    for name in ("A", "plain", "A", "plain"):
+    for name in ("A", "plain"):
         model = model_a if name == "A" else model_p
         t0 = time.perf_counter()
         m, counts = counted(lambda: ev.evaluate(model, stats, ds, K))
@@ -375,13 +405,10 @@ def evaluator_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted, z
     d_nll = abs(m_a["nll"] - m_p["nll"]) / abs(m_p["nll"])
     check(d_ade <= EVAL_ADE_TOL and d_fde <= EVAL_ADE_TOL and d_nll <= EVAL_NLL_RTOL,
           f"route A vs plain: |d ade| {d_ade}, |d fde| {d_fde}, nll rel {d_nll}")
-    repeat = max(abs(runs["A"][1][0][k] - m_a[k]) for k in metric_keys)
     log(f"route A vs plain: |d min_ade| {d_ade:.3e} m, |d min_fde| {d_fde:.3e} m (tol "
-        f"{EVAL_ADE_TOL}), nll rel {d_nll:.3e} (tol {EVAL_NLL_RTOL}); route A run to run "
-        f"{repeat:.3e}")
+        f"{EVAL_ADE_TOL}), nll rel {d_nll:.3e} (tol {EVAL_NLL_RTOL})")
     summary.update(
-        route_a_vs_plain={"d_min_ade": d_ade, "d_min_fde": d_fde, "nll_rel": d_nll,
-                          "a_repeat": repeat},
+        route_a_vs_plain={"d_min_ade": d_ade, "d_min_fde": d_fde, "nll_rel": d_nll},
         windows_per_s={k: [len(ds) / s for _, s in v] for k, v in runs.items()},
         window_rollouts_per_s={k: [len(ds) * K / s for _, s in v] for k, v in runs.items()},
         metrics={"A": {k: m_a[k] for k in metric_keys}, "plain": {k: m_p[k] for k in metric_keys}})
@@ -500,7 +527,8 @@ def bench_phase(torch, dev, card, state, stats, xy_obs, mask, routes, counted, z
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        code = bench.main([])
+        code = bench.main(["--host-batch", str(BENCH_HOST_BATCH), "--ref-iters",
+                           str(BENCH_REF_ITERS), "--iters", str(BENCH_ITERS)])
     lines = out.getvalue().strip().splitlines()
     check(code == 0 and len(lines) == 1, f"bench printed {len(lines)} lines: {lines}")
     rec = json.loads(lines[0])
@@ -667,14 +695,15 @@ def training_phase(torch, dev, card, cfg, counted, zero) -> None:
         f"parameters and metrics; final eval (EMA) min_ade {m['min_ade']:.6f} min_fde "
         f"{m['min_fde']:.6f} nll {m['nll']:.6f}; launches {counts}")
 
-    # d. train_bench, the plain route and use_pallas in turns.
+    # d. train_bench, the plain route and use_pallas.
     rows = {}
     with torch.enable_grad():
         for loss_mode in ("nll", "variety"):
-            for use_pallas in (False, True, True, False):
+            for use_pallas in (False, True):
                 r = train_bench.bench_train_step(TB, min_seconds=1.0, use_pallas=use_pallas,
                                                  loss_mode=loss_mode, variety_n=VARIETY_N,
-                                                 device=dev, flops=not rows.get(loss_mode))
+                                                 device=dev, flops=not rows.get(loss_mode),
+                                                 iters=TRAIN_BENCH_ITERS)
                 rows.setdefault(loss_mode, []).append(r)
                 log("train_bench " + train_bench._fmt(r))
     summary = {mode: {"plain_steps_per_s": [r.steps_per_sec for r in rs if r.route == "plain"],
@@ -829,16 +858,16 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
         f"launches {counts} (capture, warm-up and eval)")
     summary["fit_s"] = fit_s
 
-    # c. train_bench per step and in chunks of M, in turns; the graphed step's profile.
+    # c. train_bench in chunks of M (the same step per step, M = 1, is phase 10's
+    # use_pallas row); the graphed step's profile.
     rows = {}
     with torch.enable_grad():
         for loss_mode in ("nll", "variety"):
-            for m_ in (1, M, M, 1):
-                r = train_bench.bench_train_step(TB, min_seconds=1.0, use_pallas=True,
-                                                 loss_mode=loss_mode, variety_n=VARIETY_N,
-                                                 device=dev, flops=False, steps_per_dispatch=m_)
-                rows.setdefault(f"{loss_mode} M={m_}", []).append(r.steps_per_sec)
-                log("train_bench " + train_bench._fmt(r))
+            r = train_bench.bench_train_step(TB, min_seconds=1.0, use_pallas=True,
+                                             loss_mode=loss_mode, variety_n=VARIETY_N,
+                                             device=dev, flops=False, steps_per_dispatch=M)
+            rows[f"{loss_mode} M={M}"] = r.steps_per_sec
+            log("train_bench " + train_bench._fmt(r))
         prof = train_bench.profile_train_step(TB, use_pallas=True, device=dev, steps=M,
                                               steps_per_dispatch=M)
     log("train_bench --profile --steps-per-dispatch " + json.dumps(prof))
@@ -1155,10 +1184,11 @@ def bf16_phase(torch, dev, card, cfg, plain_cfg, route_a, route_b, state, stats,
             f"{rel:.2e} relative, parameters max |d| {dp.max().item():.3e}")
         rates = {}
         for m_ in (1, CHUNK_M):
-            for dtype in ("bfloat16", "float32", "float32", "bfloat16"):
+            for dtype in ("bfloat16", "float32"):
                 r = train_bench.bench_train_step(TB, min_seconds=1.0, use_pallas=True, device=dev,
                                                  flops=False, steps_per_dispatch=m_,
-                                                 model_kw={"dtype": dtype})
+                                                 model_kw={"dtype": dtype},
+                                                 iters=TRAIN_BENCH_ITERS)
                 rates.setdefault(f"{dtype} M={m_}", []).append(r.steps_per_sec)
                 log("train_bench " + train_bench._fmt(r))
         train_rows["train_bench_steps_per_s"] = rates
@@ -1418,6 +1448,14 @@ def scale_out_phase(torch, dev, card, cfg, counted, zero, results) -> None:
     err = (out_k - out_p).abs().max().item()
     check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
           f"fused_gat_lanes vs plain: max abs err {err}")
+    # Lane i runs a single launch's code on lane i's graphs and weights
+    # (gat.cu's Dims::lane offsets only the weight pointers): equal to the bit.
+    for i in range(S):
+        one = fused_gat.fused_gat(*(t[i] for t in args[:-1]), H)
+        check(torch.equal(out_k[i], one), f"fused_gat_lanes lane {i} vs a single fused_gat "
+                                          f"launch: max |d| {(out_k[i] - one).abs().max().item()}")
+    log(f"fused_gat_lanes: each of the {S} lanes equals a single fused_gat launch on its graphs "
+        f"and weights to the bit")
     hd, dout = ws[0].shape[-1], ws[3].shape[-1]
     results["fused_gat_lanes"] = dict(
         occupancy=_build.occupancy("gat", N, 64, H, hd, dout), max_abs_err=err,
@@ -1631,6 +1669,289 @@ def scale_out_phase(torch, dev, card, cfg, counted, zero, results) -> None:
         f"({STREAM_BENCH_WINDOWS} windows, B={STREAM_BENCH_B}): resident "
         f"{sb['resident_steps_per_sec']:.3f}, stream {sb['stream_steps_per_sec']:.3f} steps/s")
     log("scale-out " + json.dumps(summary))
+
+
+_ROW = re.compile(r"seed=(\d+) scene=(\w+): ADE=([-\d.]+) FDE=([-\d.]+)")
+_LOG = re.compile(r"\[step +\d+ t= *([\d.]+)s\] (.*)")
+
+
+def fold_times(out: str) -> list:
+    """A ``train --scene all`` run's MetricsLogger lines -> per fold (set-up
+    s, training s, final evaluations s): the set-up line's ``setup_s``, then
+    the logger's clock (from the end of set-up) at the final checkpoint and
+    at the last evaluation."""
+    folds = []
+    for t, rest in _LOG.findall(out):
+        if "event=setup" in rest:
+            folds.append([float(re.search(r"setup_s=([\d.]+)", rest).group(1)), None, None])
+        elif "event=checkpoint" in rest:
+            folds[-1][1] = float(t)
+        elif "eval_min_ade" in rest:
+            folds[-1][2] = round(float(t) - folds[-1][1], 3)
+    return folds
+
+
+def protocol_phase(torch, dev, card, counted, zero) -> None:
+    """Phase 15: the leave-one-out protocol and its tools at config 4's full
+    width, through ``python -m mmtraj_torch.cli`` (in-process unless named):
+    ``generate-data`` of ``data/synthetic3000`` (a child process; byte-equal
+    files) and ``baseline --scene all`` for cv and zv (child processes);
+    ``train --scene all --use-pallas --seeds 0 1 --vmap-seeds`` on a small
+    synthetic tree with exact launches and the mean±std table; ``eval-loo``
+    plain and ``--ensemble`` with exact launches, one fold's row equal to
+    ``cli eval`` of its checkpoint to the bit; one eager fold under
+    ``--profile``, its trace's ``gat_kernel`` occurrences equal to the
+    launch counter, ``profile-stats``, and the same fold under
+    ``--debug-nans`` (chunks of 2, run eagerly) equal to the bit; the
+    occupancy bench (routes plain and A) and its evaluate wall on
+    ``mixed`` with exact launches; ``mmtraj_torch.entry.entry()``."""
+    from mmtraj_torch import cli as torch_cli
+    from mmtraj_torch import entry
+    from mmtraj_torch import evaluate as ev
+    from mmtraj_torch import train as tr
+    from mmtraj_torch.benchmarks import occupancy_bench as occ
+    from mmtraj_torch.config import SCENES
+    from mmtraj_torch.data.registry import load_scene_windows
+    from mmtraj_torch.params import load_npz
+    from mmtraj_torch.utils import profiling
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_protocol_", dir=root))
+    summary = {"card": card}
+    seeds = [str(x) for x in LOO_SEEDS]
+    per_batch = TO + 2 * TP  # fused_gat a batch: encoder, teacher-forced NLL, rollout steps
+
+    def cli(argv):
+        """``cli.main(argv)`` with its launches -> (stdout, stderr, counts)."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            code, counts = counted(lambda: torch_cli.main(argv))
+        check(code == 0, f"cli {argv[0]}: exit {code}\n{err.getvalue()[-2000:]}")
+        return out.getvalue(), err.getvalue(), counts
+
+    on_card = ["--device", dev.type]
+    jobs = {}
+    try:
+        # a. The synthetic dataset and the baselines, in child processes
+        # beside the card's work.
+        gen_dir = tmp / "synthetic3000"
+        jobs.update({name: subprocess.Popen([sys.executable, "-m", "mmtraj_torch.cli", *argv],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                       cwd=root)
+                for name, argv in (
+                    ("generate-data", ["generate-data", "--data-dir", str(gen_dir), "--seed", "0",
+                                       "--n-frames", "3000"]),
+                    ("baseline cv", ["baseline", "--data-dir", str(EVAL_DATA), "--scene", "all",
+                                     "--baseline", "cv"]),
+                    ("baseline zv", ["baseline", "--data-dir", str(EVAL_DATA), "--scene", "all",
+                                     "--baseline", "zv"]))})
+
+        # b. train --scene all, a population of two seeds a fold.
+        data = str(tmp / "data")
+        t0 = time.perf_counter()
+        out, _, _ = cli(["generate-data", "--data-dir", data, "--n-frames", str(LOO_FRAMES)])
+        n_test = {sc: len(load_scene_windows(data, sc, TO, TP)) for sc in SCENES}
+        loo = str(tmp / "loo")
+        with torch.enable_grad():
+            out, _, counts = cli(["train", "--config", "4", "--use-pallas", "--scene", "all",
+                                  "--seeds", *seeds, "--vmap-seeds", "--steps", str(LOO_STEPS),
+                                  "--steps-per-dispatch", str(LOO_M), "--data-dir", data,
+                                  "--out-dir", loo] + on_card)
+        loo_s = time.perf_counter() - t0
+        capture = (tr.CAPTURE_WARMUP + 1) * (TO + TP)
+        want = {**zero, "fused_gat_lanes": len(SCENES) * capture,
+                "fused_gat": len(SCENES) * capture + sum(
+                    len(LOO_SEEDS) * math.ceil(n / 16) * per_batch for n in n_test.values())}
+        check(counts == want, f"train --scene all: launches {counts}, want {want}")
+        table = out[out.index("\nleave-one-out (config 4"):].strip().splitlines()
+        rows = [r for r in table if r.split()[0] in SCENES + ("AVG",)]
+        check(len(rows) == len(SCENES) + 1 and all(
+            math.isfinite(float(x)) for r in rows for x in re.findall(r"[-\d.]+(?=±)", r)),
+              f"train --scene all table: {table}")
+        check(all((Path(loo) / f"s{sd}" / sc / "checkpoint.npz").exists()
+                  for sd in LOO_SEEDS for sc in SCENES), "train --scene all: a fold's checkpoint")
+        folds = fold_times(out)
+        check(len(folds) == len(SCENES) and all(None not in f for f in folds),
+              f"train --scene all: fold times {folds}")
+        log(f"train --scene all --use-pallas --seeds {' '.join(seeds)} --vmap-seeds "
+            f"({LOO_STEPS} steps a fold, M={LOO_M}; {LOO_FRAMES}-frame synthetic scenes, test "
+            f"windows {n_test}): {loo_s:.1f} s ({loo_s / len(SCENES):.1f} s a fold; set-up, "
+            f"training, final evaluations a fold {folds} s); launches {counts}; {card}")
+        for line in table:
+            log("  " + line)
+        summary["train_loo"] = {"seconds": loo_s, "fold_s": loo_s / len(SCENES),
+                                "setup_train_eval_s": folds, "launches": counts,
+                                "test_windows": n_test}
+
+        # c. eval-loo, plain and --ensemble; a fold's row against cli eval.
+        seen = []
+        real_evaluate = ev.evaluate
+
+        def spy(*a, **kw):
+            m = real_evaluate(*a, **kw)
+            seen.append(m)
+            return m
+
+        ev.evaluate = spy
+        try:
+            t0 = time.perf_counter()
+            out, _, counts = cli(["eval-loo", "--loo-dir", loo] + on_card)
+            plain_s = time.perf_counter() - t0
+            want = {**zero, "fused_gat": sum(len(LOO_SEEDS) * math.ceil(n / 12) * per_batch
+                                             for n in n_test.values())}
+            check(counts == want, f"eval-loo: launches {counts}, want {want}")
+            first = seen[0]
+            check(len(seen) == len(SCENES) * len(LOO_SEEDS) and all(
+                math.isfinite(m[k]) for m in seen for k in ("min_ade", "min_fde")),
+                  f"eval-loo: {len(seen)} folds")
+            rows = _ROW.findall(out)
+            check(len(rows) == len(seen) and rows[0][:2] == (seeds[0], SCENES[0]),
+                  f"eval-loo rows {rows}")
+            log(f"eval-loo ({plain_s:.1f} s; launches {counts}):")
+            for line in out.strip().splitlines():
+                log("  " + line)
+            seen.clear()
+            ckpt = str(Path(loo) / f"s{seeds[0]}" / SCENES[0] / "checkpoint.npz")
+            line, _, _ = cli(["eval", "--ckpt", ckpt] + on_card)
+            check(seen == [first], f"eval-loo's {SCENES[0]} row {first} != cli eval's {seen}")
+            log(f"cli eval of s{seeds[0]}/{SCENES[0]}: {line.strip()}; its metrics equal "
+                f"eval-loo's row to the bit")
+            t0 = time.perf_counter()
+            out, _, counts = cli(["eval-loo", "--loo-dir", loo, "--ensemble"] + on_card)
+            ens_s = time.perf_counter() - t0
+            want = {**zero, "fused_gat": sum(math.ceil(n / 6) * len(LOO_SEEDS) * per_batch
+                                             for n in n_test.values())}
+            check(counts == want, f"eval-loo --ensemble: launches {counts}, want {want}")
+            check(out.count("ensemble[2] scene=") == len(SCENES), f"eval-loo --ensemble: {out}")
+            log(f"eval-loo --ensemble ({ens_s:.1f} s; launches {counts}):")
+            for line in out.strip().splitlines()[-len(SCENES) - 3:]:
+                log("  " + line)
+        finally:
+            ev.evaluate = real_evaluate
+        summary["eval_loo_s"] = {"plain": plain_s, "ensemble": ens_s}
+
+        # d. One eager fold under --profile and under --debug-nans.
+        fold = ["train", "--config", "4", "--use-pallas", "--scene", PROFILE_SCENE, "--steps",
+                str(PROFILE_STEPS), "--data-dir", data] + on_card
+        prof_dir = tmp / "profiled"
+        with torch.enable_grad():
+            t0 = time.perf_counter()
+            out, _, counts = cli(fold + ["--out-dir", str(prof_dir), "--profile"])
+            prof_s = time.perf_counter() - t0
+        want = {**zero, "fused_gat": PROFILE_STEPS * 2 * (TO + TP)
+                + math.ceil(n_test[PROFILE_SCENE] / 16) * per_batch}
+        check(counts == want, f"profiled fold: launches {counts}, want {want}")
+        by_cat, top = profiling.summarize_trace(str(prof_dir / "profile"), top=10**9)
+        in_trace = sum(occ_ for _, cat, name, occ_ in top if "gat_kernel" in name)
+        trace = next((prof_dir / "profile").glob("*.pt.trace.json"))
+        spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in json.load(open(trace))["traceEvents"]
+                 if e.get("ph") == "X" and "ts" in e]
+        span_us = max(b for _, b in spans) - min(a for a, _ in spans)
+        busy = sum(by_cat.values()) / span_us
+        check(in_trace == counts["fused_gat"],
+              f"trace: {in_trace} gat_kernel events, {counts['fused_gat']} launches counted")
+        stats_out, _, _ = cli(["profile-stats", "--trace-dir", str(prof_dir / "profile"),
+                               "--top", "8"])
+        check(stats_out.startswith("device time by category"), f"profile-stats: {stats_out}")
+        log(f"profiled fold ({PROFILE_SCENE} held out, {PROFILE_STEPS} eager steps and the final "
+            f"eval, {prof_s:.1f} s; the trace spans {span_us / 1e6:.3f} s, device busy "
+            f"{busy:.3f}; {os.path.getsize(trace) / 1e6:.1f} MB): the trace's gat_kernel events "
+            f"{in_trace} = fused_gat launches counted; cli profile-stats:")
+        for line in stats_out.strip().splitlines():
+            log("  " + line)
+        nan_dir = tmp / "debug_nans"
+        try:
+            with torch.enable_grad():
+                t0 = time.perf_counter()
+                _, err, _ = cli(fold + ["--out-dir", str(nan_dir), "--debug-nans",
+                                        "--steps-per-dispatch", "2"])
+                nan_s = time.perf_counter() - t0
+        finally:
+            profiling.disable_nan_debugging()
+        check("debug-nans: each step of a chunk runs eagerly" in err,
+              f"--debug-nans with chunks: stderr {err[-500:]}")
+        a = load_npz(str(prof_dir / "checkpoint.npz")).state
+        b = load_npz(str(nan_dir / "checkpoint.npz")).state
+        losses = [[r["loss"] for r in map(json.loads, open(d / "metrics.jsonl")) if "loss" in r]
+                  for d in (prof_dir, nan_dir)]
+        check(all(torch.equal(a[k], b[k]) for k in a) and losses[0] == losses[1],
+              "--debug-nans: the fold differs from the profiled one")
+        log(f"--debug-nans fold (chunks of 2 run eagerly, {nan_s:.1f} s): parameters and losses "
+            f"equal to the profiled fold's to the bit")
+        summary["profile"] = {"fold_s": prof_s, "debug_nans_s": nan_s, "device_us": by_cat,
+                              "trace_span_us": span_us, "device_busy": busy,
+                              "gat_kernel_events": in_trace}
+
+        # e. The occupancy bench, routes plain and A, and its evaluate wall.
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code, counts = counted(lambda: occ.main(["--iters", str(OCC_ITERS)]))
+        occ_s = time.perf_counter() - t0
+        per_capture = 4  # bench.capture: 3 warm-up calls and the capture
+        want = {**zero, "fused_gat": len(occ.BUCKETS) * per_capture * TO,
+                "fused_decode": len(occ.BUCKETS) * per_capture}
+        check(code == 0 and counts == want, f"occupancy bench: launches {counts}, want {want}")
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(res["card"] == card and set(occ.BENCH_ROUTES) <= set(res), f"occupancy: {res}")
+        speedups = {r: {w: res[r]["workloads"][w]["speedup"] for w in occ.WORKLOADS}
+                    for r in occ.BENCH_ROUTES}
+        log(f"occupancy bench ({occ_s:.1f} s; iters {OCC_ITERS}; launches {counts}) bucketed/"
+            f"padded speed-up {json.dumps(speedups)}:")
+        print(json.dumps(res), flush=True)
+        model_a, _ = occ.make_model("A", dev)
+        windows, wcounts = occ.wall_windows("mixed", OCC_WALL_WINDOWS, np.random.default_rng(2))
+        bks = np.searchsorted(occ.BUCKETS, wcounts, side="left")
+        batches = sum(math.ceil(int((bks == i).sum()) / occ.bucket_batch(model_a, K, nb))
+                      for i, nb in enumerate(occ.BUCKETS))
+        batches += math.ceil(OCC_WALL_WINDOWS / occ.bucket_batch(model_a, K, N))  # padded
+        t0 = time.perf_counter()
+        wall, counts = counted(lambda: occ.run_evaluate_wall(K, OCC_WALL_WINDOWS, "A", dev,
+                                                             workloads=("mixed",)))
+        wall_s = time.perf_counter() - t0
+        want = {**zero, "fused_gat": 2 * batches * (TO + TP), "fused_decode": 2 * batches}
+        check(counts == want, f"evaluate wall: launches {counts}, want {want}")
+        m = wall["mixed"]
+        check(m["ade_delta"] < occ.ADE_GATE, f"evaluate wall: {m}")
+        log(f"evaluate wall, route A, {OCC_WALL_WINDOWS} mixed windows ({wall_s:.1f} s): padded "
+            f"{m['padded']['windows_per_sec']:.1f}, bucketed {m['bucketed']['windows_per_sec']:.1f}"
+            f" windows/s (x{m['speedup']:.3f}); |d ADE| {m['ade_delta']:.3e} m (gate "
+            f"{occ.ADE_GATE}); launches {counts} ({batches} batches, each twice); {card}")
+        summary["occupancy"] = {"seconds": occ_s, "speedup": speedups, "wall_mixed_A": m}
+
+        # f. The entry contract's entry().
+        fn, example = entry.entry()
+        loss, counts = counted(lambda: fn(*example))
+        check(bool(torch.isfinite(loss)) and counts == {**zero, "fused_gat": TO + TP},
+              f"entry(): loss {loss}, launches {counts}")
+        log(f"entry(): config 4 nll loss {float(loss):.6f} at B=8, N=16 on {example[1].device}, "
+            f"fused_gat {counts['fused_gat']} launches")
+
+        # a, continued: the child processes.
+        for name, job in jobs.items():
+            out, err = job.communicate(timeout=300)
+            check(job.returncode == 0, f"cli {name}: exit {job.returncode}\n{err[-2000:]}")
+            if name == "generate-data":
+                same = [f.name for f in sorted(EVAL_DATA.glob("*.txt"))
+                        if (gen_dir / f.name).read_bytes() == f.read_bytes()]
+                check(len(same) == len(SCENES), f"generate-data: only {same} equal "
+                                                f"data/synthetic3000")
+                log(f"cli generate-data --seed 0 --n-frames 3000: {out.strip()}; all "
+                    f"{len(same)} files byte-equal to data/synthetic3000")
+            else:
+                nums = [float(x) for x in re.findall(r"=([-\d.]+)m", out)]
+                check(len(nums) == 2 * (len(SCENES) + 1) and all(map(math.isfinite, nums)),
+                      f"cli {name}: {out}")
+                log(f"cli {name} --scene all on data/synthetic3000:")
+                for line in out.strip().splitlines():
+                    log("  " + line)
+    finally:
+        for job in jobs.values():
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("protocol " + json.dumps(summary))
 
 
 def main() -> int:
@@ -1960,11 +2281,11 @@ def main() -> int:
             f"tc bound {tc_bound(*cost):.5f} ms; edges {int(args[3].sum())} of "
             f"{args[3].numel()}; {json.dumps(_build.occupancy('attend', shape[1], H, shape[2]))}")
 
-    # The benchmark end to end, "xla" and "auto" in turns, with exact counts:
+    # The benchmark end to end, "xla" then "auto", with exact counts:
     # bench_rollout makes 4 * iters rollout_k calls (a warm-up run, 3 trials).
     dense_rates = {}
     for encoder, per_call in (("rnn", TO + TP), ("attn", cfg.model.attn_layers + TP)):
-        for kernel in ("xla", "auto", "auto", "xla"):
+        for kernel in ("xla", "auto"):
             reset_counts()
             rate = rollout_bench.bench_rollout(CNS[0], kernel, CB, K, CITERS, encoder=encoder,
                                                device=dev)
@@ -1973,8 +2294,8 @@ def main() -> int:
                   f"bench_rollout {encoder} {kernel}: launches {read_counts()}, attend {want}")
             check(rate > 0, f"bench_rollout {encoder} {kernel}: rate {rate}")
             dense_rates.setdefault(f"{encoder}/{kernel}", []).append(rate)
-    log(f"dense-crowd window-rollouts/s (N={CNS[0]}, B={CB}, K={K}; in turns xla, auto, auto, "
-        f"xla): {json.dumps(dense_rates)}")
+    log(f"dense-crowd window-rollouts/s (N={CNS[0]}, B={CB}, K={K}; xla, then auto): "
+        f"{json.dumps(dense_rates)}")
 
     # A short op sweep: one B, each N; the packed kernel where 2N <= 128.
     reset_counts()
@@ -2034,6 +2355,12 @@ def main() -> int:
     t0 = time.perf_counter()
     scale_out_phase(torch, dev, card, cfg, counted, dict.fromkeys(counters, 0), results)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    log(f"phases 1-14: {time.perf_counter() - t_start:.1f} s")
+
+    # -- 15. the leave-one-out protocol and its tools -------------------------------------
+    t0 = time.perf_counter()
+    protocol_phase(torch, dev, card, counted, dict.fromkeys(counters, 0))
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

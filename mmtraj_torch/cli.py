@@ -1,31 +1,43 @@
 """Command-line entry point of the port (counterpart of ``mmtraj/cli.py``).
-Ported: ``train`` (one scene; the flags below, with ``--data-parallel``,
-``--stream``, ``--seeds`` and ``--vmap-seeds``),
+
+Subcommands: ``train`` (one scene, or with ``--scene all`` the five-fold
+leave-one-out protocol, each scene held out in turn; ``--seeds`` runs one a
+seed, ``--vmap-seeds`` trains them as one vmapped population;
+``--data-parallel``, ``--stream``, ``--steps-per-dispatch``,
+``--synthetic``, ``--profile``, ``--debug-nans`` and ``--tensorboard``),
 ``eval`` (scores a checkpoint on the held-out scene and prints the JAX
-package's eval line), ``autotune-eval`` (the fastest eval batch on this
-card), ``convert`` (a checkpoint between the .npz, .pt and .h5 formats,
-and to and from Keras's legacy ``save_weights`` layout), ``export`` (a
-frozen K-sample predictor as a ``torch.export`` .pt2 artifact), ``serve``
-(JSON-lines requests on stdin answered from artifacts, protocol in
-``mmtraj_torch/serve.py``) and ``predict`` (K sampled futures for every
-window of the held-out scene into an .npz).  ``eval``, ``autotune-eval``,
-``export`` and ``predict`` read any format ``mmtraj_torch.checkpoint.load``
-reads; an Orbax directory is converted with the JAX package's ``python -m
-mmtraj.cli convert`` first.
+package's eval line), ``eval-loo`` (scores a ``train --scene all`` tree in
+one process: a table of mean±std over seeds, or with ``--ensemble`` each
+fold's seeds, and trees, pooled into one deep ensemble), ``baseline``
+(closed-form constant- or zero-velocity ADE/FDE, no model),
+``generate-data`` (the synthetic five-scene dataset), ``autotune-eval``
+(the fastest eval batch on this card), ``convert`` (a checkpoint between
+the .npz, .pt and .h5 formats, and to and from Keras's legacy
+``save_weights`` layout), ``profile-stats`` (the device time of a trace
+that ``train --profile`` wrote), ``export`` (a frozen K-sample predictor
+as a ``torch.export`` .pt2 artifact), ``serve`` (JSON-lines requests on
+stdin answered from artifacts, protocol in ``mmtraj_torch/serve.py``) and
+``predict`` (K sampled futures for every window of the held-out scene into
+an .npz).  The commands that read a checkpoint read any format
+``mmtraj_torch.checkpoint.load`` reads; an Orbax directory is converted
+with the JAX package's ``python -m mmtraj.cli convert`` first.
 
 Usage:
+  python -m mmtraj_torch.cli generate-data --data-dir data/synthetic
+  python -m mmtraj_torch.cli baseline --data-dir data/synthetic --scene all --baseline cv
   python -m mmtraj_torch.cli train --config 4 --data-dir data/synthetic3000 --out-dir runs/x
+  python -m mmtraj_torch.cli train --config 4 --data-dir ... --scene all --seeds 0 1 2 --vmap-seeds
+  python -m mmtraj_torch.cli eval-loo --loo-dir runs/loo [--ensemble]
   python -m mmtraj_torch.cli train --config 1 --data-dir ... --steps-per-dispatch 10
-  python -m mmtraj_torch.cli train --config 4 --data-dir ... --seeds 0 1 2 3 4 --vmap-seeds
+  python -m mmtraj_torch.cli train --config 4 --data-dir ... --profile --out-dir runs/p
+  python -m mmtraj_torch.cli profile-stats --trace-dir runs/p/profile
   python -m mmtraj_torch.cli train --config 5 --data-dir ... --data-parallel
   python -m mmtraj_torch.cli train --config 4 --data-dir ... --stream
   python -m mmtraj_torch.cli eval --ckpt runs/x/checkpoint.npz --data-dir data/synthetic3000
   python -m mmtraj_torch.cli eval --ckpt runs/x/model.pt --dtype bfloat16
   python -m mmtraj_torch.cli autotune-eval --ckpt runs/x/checkpoint.npz
   python -m mmtraj_torch.cli eval --ckpt ... --data-dir ... --device cpu
-  python -m mmtraj_torch.cli eval --ckpt ... --data-dir ... --data-parallel
   python -m mmtraj_torch.cli convert --src runs/x/checkpoint.npz --dst runs/x/model.pt
-  python -m mmtraj_torch.cli convert --keras --src runs/x/checkpoint.npz --dst keras.h5
   python -m mmtraj_torch.cli convert --keras --src keras.h5 --like x.npz --dst imported.npz
   python -m mmtraj_torch.cli export --ckpt runs/x/checkpoint.npz --out runs/x/predictor.pt2
   python -m mmtraj_torch.cli serve --artifact runs/x/predictor.pt2 --aggregate 8 < requests.jsonl
@@ -43,15 +55,21 @@ import sys
 from mmtraj_torch.config import SCENES, get_config
 
 
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data-dir", default=None, help="annotation dir ({scene}.txt files)")
+    p.add_argument("--scene", default=None, choices=SCENES + ("all",),
+                   help="held-out scene; 'all' (train and baseline only) runs the five-fold "
+                        "leave-one-out protocol and reports the average")
+    p.add_argument("--k", type=int, default=None, help="K samples for best-of-K eval")
+    p.add_argument("--obs-len", type=int, default=None)
+    p.add_argument("--pred-len", type=int, default=None)
+    p.add_argument("--n-max", type=int, default=None, help="padded agent capacity")
+
+
 def _add_train(sub) -> None:
     tp = sub.add_parser("train", help="train a forecaster on one device")
     tp.add_argument("--config", default="3", help="preset 1..5")
-    tp.add_argument("--data-dir", default=None, help="annotation dir ({scene}.txt files)")
-    tp.add_argument("--scene", default=None, choices=SCENES, help="held-out scene")
-    tp.add_argument("--k", type=int, default=None, help="K samples for best-of-K eval")
-    tp.add_argument("--obs-len", type=int, default=None)
-    tp.add_argument("--pred-len", type=int, default=None)
-    tp.add_argument("--n-max", type=int, default=None, help="padded agent capacity")
+    _add_common(tp)
     tp.add_argument("--steps", type=int, default=None)
     tp.add_argument("--batch-size", type=int, default=None)
     tp.add_argument("--lr", type=float, default=None)
@@ -93,7 +111,8 @@ def _add_train(sub) -> None:
     tp.add_argument("--seed", type=int, default=None)
     tp.add_argument("--seeds", type=int, nargs="+", default=None,
                     help="train one run a seed, each into {out-dir}/s{seed}, and report "
-                         "mean±std (e.g. --seeds 0 1 2)")
+                         "mean±std (e.g. --seeds 0 1 2); with --scene all the multi-seed "
+                         "leave-one-out table")
     tp.add_argument("--vmap-seeds", action="store_true",
                     help="train the --seeds sweep as one vmapped population "
                          "(mmtraj_torch/population.py): every kernel of a step runs once for "
@@ -113,23 +132,30 @@ def _add_train(sub) -> None:
     tp.add_argument("--steps-per-dispatch", type=int, default=None,
                     help="M steps a host dispatch: on the card one step as a CUDA graph, "
                          "replayed M times (needs resident data, not --stream)")
+    tp.add_argument("--synthetic", action="store_true",
+                    help="generate synthetic data into --data-dir first")
+    tp.add_argument("--profile", action="store_true",
+                    help="write a torch.profiler trace to {out-dir}/profile")
+    tp.add_argument("--debug-nans", action="store_true",
+                    help="raise on the first NaN of any op, forward or backward (slow; "
+                         "--steps-per-dispatch chunks then run eagerly)")
+    tp.add_argument("--tensorboard", action="store_true",
+                    help="mirror metrics as TensorBoard scalars to {out-dir}/tb")
     tp.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from mmtraj_torch import __version__
+
     ap = argparse.ArgumentParser(prog="mmtraj_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--version", action="version", version=f"mmtraj_torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_train(sub)
     ep = sub.add_parser("eval", help="evaluate a checkpoint (best-of-K ADE/FDE)")
     ep.add_argument("--ckpt", required=True,
                     help="a .npz, .pt or .h5 checkpoint (either package's)")
-    ep.add_argument("--data-dir", default=None, help="annotation dir ({scene}.txt files)")
-    ep.add_argument("--scene", default=None, choices=SCENES, help="held-out scene")
-    ep.add_argument("--k", type=int, default=None, help="K samples for best-of-K")
-    ep.add_argument("--obs-len", type=int, default=None)
-    ep.add_argument("--pred-len", type=int, default=None)
-    ep.add_argument("--n-max", type=int, default=None, help="padded agent capacity")
+    _add_common(ep)
     ep.add_argument("--batch-size", type=int, default=None,
                     help="eval batch; default: evaluate.vmem_friendly_batch, the JAX "
                          "package's TPU-sized default (see autotune_eval_batch)")
@@ -157,6 +183,45 @@ def build_parser() -> argparse.ArgumentParser:
                     help="raise n_max to the densest test window so no agent is dropped")
     ep.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
+    lp = sub.add_parser("eval-loo", help="evaluate a train --scene all checkpoint tree (one "
+                                         "process, per-scene mean±std table over seeds)")
+    lp.add_argument("--loo-dir", required=True, nargs="+",
+                    help="the --out-dir given to train --scene all; contains {scene}/ (single "
+                         "seed) or s{seed}/{scene}/ subdirs.  Several trees need --ensemble: "
+                         "each fold pools every tree's checkpoints into one ensemble "
+                         "(evaluate_mixed)")
+    lp.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="seeds to aggregate (default: detected from the layout)")
+    lp.add_argument("--ema", action="store_true",
+                    help="evaluate checkpoint_ema.npz instead of checkpoint.npz")
+    lp.add_argument("--seed", type=int, default=0, help="eval sampling seed")
+    lp.add_argument("--oversample", type=int, default=1)
+    lp.add_argument("--tta", type=int, default=1,
+                    help="orthogonal test-time-augmentation views per member (see eval --tta)")
+    lp.add_argument("--ensemble", action="store_true",
+                    help="pool each fold's per-seed checkpoints into one deep ensemble whose "
+                         "candidates endpoint-diverse selection cuts to K (one row a scene)")
+    lp.add_argument("--sigma-scale", type=float, default=1.0)
+    lp.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
+                    help="override the model compute dtype at eval time")
+    lp.add_argument("--buckets", type=int, nargs="+", default=None,
+                    help="agent-capacity shape buckets (see eval --buckets)")
+    lp.add_argument("--reduction", default="per_agent", choices=("per_agent", "per_window"))
+    lp.add_argument("--rollout", default="sample", choices=("sample", "modes"))
+    lp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+    bp = sub.add_parser("baseline",
+                        help="closed-form baseline ADE/FDE on the held-out scene (no model)")
+    _add_common(bp)
+    bp.add_argument("--baseline", default="cv", choices=("cv", "zv"),
+                    help="cv: constant velocity (the standard anchor); zv: zero velocity "
+                         "(freeze at the last position)")
+
+    gp = sub.add_parser("generate-data", help="write the synthetic ETH/UCY-format dataset")
+    gp.add_argument("--data-dir", required=True)
+    gp.add_argument("--seed", type=int, default=0)
+    gp.add_argument("--n-frames", type=int, default=600)
+
     at = sub.add_parser("autotune-eval",
                         help="measure the fastest eval batch size on this card; pass the "
                              "winner as eval --batch-size")
@@ -178,6 +243,12 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("--like", default=None,
                     help="with --keras and a Keras --src: the checkpoint whose config and norm "
                          "stats the Keras weights belong to")
+
+    pp = sub.add_parser("profile-stats",
+                        help="summarize a torch.profiler trace (device time by kernel)")
+    pp.add_argument("--trace-dir", required=True,
+                    help="dir containing *.pt.trace.json (e.g. {out-dir}/profile)")
+    pp.add_argument("--top", type=int, default=15)
 
     xp = sub.add_parser("export", help="export a frozen K-sample predictor (torch.export .pt2)")
     xp.add_argument("--ckpt", required=True)
@@ -210,12 +281,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     rp = sub.add_parser("predict", help="sample K futures for a scene's windows -> .npz")
     rp.add_argument("--ckpt", required=True)
-    rp.add_argument("--data-dir", default=None, help="annotation dir ({scene}.txt files)")
-    rp.add_argument("--scene", default=None, choices=SCENES, help="held-out scene")
-    rp.add_argument("--k", type=int, default=None, help="K samples")
-    rp.add_argument("--obs-len", type=int, default=None)
-    rp.add_argument("--pred-len", type=int, default=None)
-    rp.add_argument("--n-max", type=int, default=None, help="padded agent capacity")
+    _add_common(rp)
     rp.add_argument("--out", default="predictions.npz")
     rp.add_argument("--seed", type=int, default=0)
     rp.add_argument("--oversample", type=int, default=1,
@@ -293,16 +359,82 @@ def _vmap_seeds_guard(parser, args) -> None:
         parser.error("--vmap-seeds does not support --resume")
     if args.stream:
         parser.error("--vmap-seeds requires resident ingest (drop --stream)")
+    if args.tensorboard:
+        parser.error("--vmap-seeds does not write per-seed TensorBoard "
+                     "traces (drop --tensorboard; JSONL metrics are still "
+                     "written, with per-seed loss rows)")
+    if args.profile:
+        parser.error("--vmap-seeds does not support --profile (the S-seed "
+                     "program interleaves all seeds; profile a single-seed "
+                     "run instead)")
+
+
+def _nan(x):
+    """None (a fold with nothing to evaluate) -> NaN, so the tables print."""
+    return float("nan") if x is None else x
+
+
+def _print_loo_seed_table(args, seeds, per_seed) -> None:
+    """The multi-seed leave-one-out table: per-scene mean±std over seeds
+    (sample std), for the sequential and the ``--vmap-seeds`` protocol."""
+    import statistics as _st
+
+    print(f"\nleave-one-out (config {args.config}, "
+          f"{len(seeds)} seeds {seeds}): mean ± std over seeds")
+    print(f"{'scene':8s} {'ADE(m)':>16s} {'FDE(m)':>16s}")
+    avg_a, avg_f = [], []
+    for i, scene in enumerate(SCENES):
+        a = [_nan(rows[i][1]) for rows in per_seed]
+        f = [_nan(rows[i][2]) for rows in per_seed]
+        print(f"{scene:8s} {_st.mean(a):8.4f}±{_st.stdev(a):6.4f} "
+              f"{_st.mean(f):8.4f}±{_st.stdev(f):6.4f}")
+    for rows in per_seed:
+        avg_a.append(sum(_nan(r[1]) for r in rows) / len(rows))
+        avg_f.append(sum(_nan(r[2]) for r in rows) / len(rows))
+    k_any = next((r[3] for rows in per_seed for r in rows if r[1] is not None), None)
+    print(f"{'AVG':8s} {_st.mean(avg_a):8.4f}±{_st.stdev(avg_a):6.4f} "
+          f"{_st.mean(avg_f):8.4f}±{_st.stdev(avg_f):6.4f} "
+          f"(best-of-{k_any})")
+
+
+def _write_synthetic(cfg) -> None:
+    from mmtraj_torch.data.synthetic import write_synthetic_dataset
+
+    write_synthetic_dataset(cfg.data.data_dir, cfg.train.seed)
+
+
+def _fit_run(cfg, args):
+    """``fit`` of one run, with ``--tensorboard``'s logger and inside
+    ``--profile``'s trace."""
+    from mmtraj_torch import train
+    from mmtraj_torch.utils.logging import MetricsLogger
+    from mmtraj_torch.utils.profiling import trace_ctx
+
+    logger = MetricsLogger(cfg.train.out_dir, tensorboard=True) if args.tensorboard else None
+    try:
+        with trace_ctx(cfg.train.out_dir, enabled=args.profile):
+            return train.fit(cfg, resume=args.resume, logger=logger, device=args.device)
+    finally:
+        if logger is not None:
+            logger.close()
 
 
 def _train(args, parser) -> int:
     """One run, or with ``--seeds`` one a seed into ``{out-dir}/s{seed}``
     (sequentially, or as one population with ``--vmap-seeds``), then the
-    final metrics, and their mean and spread over seeds."""
+    final metrics, and their mean and spread over seeds.  ``--scene all``:
+    the leave-one-out protocol (``_train_loo``)."""
     import statistics
 
-    from mmtraj_torch.train import fit
+    from mmtraj_torch import population
+    from mmtraj_torch.utils.profiling import enable_nan_debugging
 
+    if args.debug_nans:
+        enable_nan_debugging()
+    if args.vmap_seeds:
+        _vmap_seeds_guard(parser, args)
+    if args.scene == "all":
+        return _train_loo(args)
     seeds = args.seeds if args.seeds else [args.seed]
     finals = []
 
@@ -315,12 +447,12 @@ def _train(args, parser) -> int:
                   f"FDE={m['min_fde']:.4f}m")
 
     if args.vmap_seeds:
-        from mmtraj_torch.population import fit_population
-
-        _vmap_seeds_guard(parser, args)
         args.seed = seeds[0]
         cfg = _apply_overrides(get_config(args.config), args)
-        for seed, result in zip(seeds, fit_population(cfg, seeds, device=args.device)):
+        if args.synthetic:
+            _write_synthetic(cfg)
+        for seed, result in zip(seeds, population.fit_population(cfg, seeds,
+                                                                 device=args.device)):
             report(seed, result)
     else:
         base_out = args.out_dir
@@ -330,12 +462,234 @@ def _train(args, parser) -> int:
             if len(seeds) > 1:
                 cfg = cfg.replace(train=dataclasses.replace(
                     cfg.train, out_dir=f"{cfg.train.out_dir}/s{seed}"))
-            report(seed, fit(cfg, resume=args.resume, device=args.device))
+            if args.synthetic and seed == seeds[0]:
+                _write_synthetic(cfg)
+            report(seed, _fit_run(cfg, args))
     if len(finals) > 1:
         a = [m["min_ade"] for m in finals]
         f = [m["min_fde"] for m in finals]
         print(f"over {len(finals)} seeds: ADE={statistics.mean(a):.4f}±{statistics.stdev(a):.4f}m "
               f"FDE={statistics.mean(f):.4f}±{statistics.stdev(f):.4f}m")
+    return 0
+
+
+def _train_loo(args) -> int:
+    """The five-fold leave-one-out protocol (``mmtraj/cli.py:536-624``): one
+    fold a held-out scene, into ``{out}/{scene}``, or with several seeds
+    ``{out}/s{seed}/{scene}``, then the per-scene table and the average;
+    with ``--seeds`` the mean±std over seeds, with ``--vmap-seeds`` each
+    fold's seeds as one population."""
+    from mmtraj_torch import population
+
+    seeds = args.seeds if args.seeds else [args.seed]
+    base_out = args.out_dir
+    if args.vmap_seeds:
+        per_seed = [[] for _ in seeds]
+        for scene in SCENES:
+            args.scene, args.seed, args.out_dir = scene, seeds[0], base_out
+            cfg = _apply_overrides(get_config(args.config), args)
+            out = cfg.train.out_dir
+            if args.synthetic and scene == SCENES[0]:
+                _write_synthetic(cfg)
+            results = population.fit_population(cfg, seeds, out_dirs=[f"{out}/s{s}/{scene}"
+                                                                      for s in seeds],
+                                                device=args.device)
+            for i, r in enumerate(results):
+                m = r.eval_metrics or {}
+                per_seed[i].append((scene, m.get("min_ade"), m.get("min_fde"), m.get("k")))
+            print(f"scene={scene}: trained population of {len(seeds)} "
+                  f"seeds in one program", flush=True)
+        _print_loo_seed_table(args, seeds, per_seed)
+        return 0
+
+    per_seed = []
+    for seed in seeds:
+        args.out_dir = base_out
+        rows = []
+        for scene in SCENES:
+            args.scene, args.seed = scene, seed
+            cfg = _apply_overrides(get_config(args.config), args)
+            out = cfg.train.out_dir
+            sub = f"{out}/{scene}" if len(seeds) == 1 else f"{out}/s{seed}/{scene}"
+            cfg = cfg.replace(train=dataclasses.replace(cfg.train, out_dir=sub))
+            if args.synthetic and scene == SCENES[0] and seed == seeds[0]:
+                _write_synthetic(cfg)
+            m = _fit_run(cfg, args).eval_metrics or {}
+            rows.append((scene, m.get("min_ade"), m.get("min_fde"), m.get("k")))
+        per_seed.append(rows)
+        if len(seeds) > 1:
+            print(f"\nseed {seed} leave-one-out (config {args.config}):")
+            for scene, a, f, _ in rows:
+                # a/f are None when a fold had no test windows to evaluate.
+                print(f"  {scene:8s} {_nan(a):8.4f} {_nan(f):8.4f}")
+
+    if len(seeds) == 1:
+        rows = per_seed[0]
+        print(f"\nleave-one-out (config {args.config}):")
+        print(f"{'scene':8s} {'ADE(m)':>8s} {'FDE(m)':>8s}")
+        ades = [a for _, a, _, _ in rows if a is not None]
+        fdes = [f for _, _, f, _ in rows if f is not None]
+        for scene, a, f, k in rows:
+            print(f"{scene:8s} {_nan(a):8.4f} {_nan(f):8.4f}")
+        if ades:
+            k_any = next(k for _, a, _, k in rows if a is not None)
+            print(f"{'AVG':8s} {sum(ades)/len(ades):8.4f} "
+                  f"{sum(fdes)/len(fdes):8.4f} (best-of-{k_any})")
+    else:
+        _print_loo_seed_table(args, seeds, per_seed)
+    return 0
+
+
+def _eval_loo(args, parser) -> int:
+    """Score a ``train --scene all`` tree in one process
+    (``mmtraj/cli.py:738-877``): a row a fold and seed, or with
+    ``--ensemble`` a row a fold of its pooled members (``evaluate`` on one
+    tree's stacked members, ``evaluate_mixed`` across trees), then the
+    table of per-scene mean±std (sample std)."""
+    import os
+
+    import numpy as np
+
+    from mmtraj_torch import checkpoint
+    from mmtraj_torch import evaluate as ev
+    from mmtraj_torch.models.forecaster import Forecaster
+
+    name = "checkpoint_ema.npz" if args.ema else "checkpoint.npz"
+    trees = args.loo_dir
+    if len(trees) > 1 and not args.ensemble:
+        parser.error("multiple --loo-dir trees require --ensemble "
+                     "(they pool into one heterogeneous ensemble)")
+    if args.ensemble and args.rollout != "sample":
+        parser.error("--ensemble requires sampled rollouts")
+    if args.buckets and len(trees) > 1:
+        parser.error("--buckets is not supported on the heterogeneous "
+                     "(multi-tree) ensemble path yet — evaluate_mixed "
+                     "has no bucket router")
+
+    def tree_seeds(tree):
+        # train --scene all writes {out}/{scene} for one seed and
+        # {out}/s{seed}/{scene} for several; --seeds applies to every tree.
+        sdirs = sorted(int(d[1:]) for d in os.listdir(tree)
+                       if d.startswith("s") and d[1:].isdigit())
+        if args.seeds is not None:
+            missing = [s for s in args.seeds if s not in sdirs]
+            if missing:
+                found = sdirs if sdirs else "a flat single-seed layout"
+                parser.error(
+                    f"--seeds {args.seeds} applies to every --loo-dir "
+                    f"tree, but {tree!r} has no s{{seed}}/ dirs for "
+                    f"{missing} (found: {found})")
+            return args.seeds
+        return sdirs or [None]
+
+    seeds_by_tree = {tree: tree_seeds(tree) for tree in trees}
+    n_members = sum(len(s) for s in seeds_by_tree.values())
+    if args.ensemble and n_members < 2:
+        parser.error("--ensemble needs >=2 members (a multi-seed tree "
+                     "or several --loo-dir trees)")
+    protocol = dict(seed=args.seed, reduction=args.reduction, sigma_scale=args.sigma_scale,
+                    oversample=args.oversample, tta=args.tta)
+    per_scene = {}
+    for scene in SCENES:
+        ds = None  # the fold's members share its data config: read it once
+        members = []
+        for tree in trees:
+            for seed in seeds_by_tree[tree]:
+                sub = f"s{seed}/{scene}" if seed is not None else scene
+                ck = checkpoint.load(os.path.join(tree, sub, name))
+                cfg = ck.config
+                if ds is None:
+                    ds = _load_eval_dataset(cfg, False)
+                mcfg = (dataclasses.replace(cfg.model, dtype=args.dtype) if args.dtype
+                        else cfg.model)
+                model = Forecaster(mcfg, cfg.data.obs_len, cfg.data.pred_len,
+                                   device=args.device, state=ck.state)
+                if args.ensemble:
+                    members.append(model)
+                    continue
+                m = ev.evaluate(model, ck.stats, ds, cfg.train.k_samples, rollout=args.rollout,
+                                buckets=args.buckets, **protocol)
+                per_scene.setdefault(scene, []).append((m["min_ade"], m["min_fde"]))
+                tag = f"seed={seed} " if seed is not None else ""
+                print(f"{tag}scene={scene}: ADE={m['min_ade']:.4f} "
+                      f"FDE={m['min_fde']:.4f}", flush=True)
+        if args.ensemble:
+            # A fold's norm stats come from its training data alone, so every
+            # member's checkpoint holds the same; the last one's stand for it.
+            if len(trees) == 1:
+                m = ev.evaluate(members, ck.stats, ds, cfg.train.k_samples,
+                                rollout=args.rollout, buckets=args.buckets, **protocol)
+            else:
+                m = ev.evaluate_mixed(members, ck.stats, ds, cfg.train.k_samples, **protocol)
+            per_scene.setdefault(scene, []).append((m["min_ade"], m["min_fde"]))
+            print(f"ensemble[{len(members)}] scene={scene}: "
+                  f"ADE={m['min_ade']:.4f} FDE={m['min_fde']:.4f}", flush=True)
+    k = m["k"]
+    extras = "".join(f" {key}={m[key]}"
+                     for key in ("oversample", "tta", "sigma_scale", "rollout", "ensemble")
+                     if key in m)
+    print(f"\nleave-one-out eval (best-of-{k}, {args.reduction}{extras}"
+          f"{', EMA' if args.ema else ''}):")
+    print(f"{'scene':8s} {'ADE(m)':>16s} {'FDE(m)':>16s}")
+    avg_a, avg_f = [], []
+    for scene, vals in per_scene.items():
+        a = np.array([v[0] for v in vals])
+        f = np.array([v[1] for v in vals])
+        avg_a.append(a.mean())
+        avg_f.append(f.mean())
+        # Sample std (ddof=1), as the train --seeds tables; a single row a
+        # scene (--ensemble) has no spread.
+        if len(a) > 1:
+            print(f"{scene:8s} {a.mean():8.4f}±{a.std(ddof=1):6.4f} "
+                  f"{f.mean():8.4f}±{f.std(ddof=1):6.4f}")
+        else:
+            print(f"{scene:8s} {a.mean():8.4f}        "
+                  f"{f.mean():8.4f}")
+    print(f"{'AVG':8s} {np.mean(avg_a):8.4f}        "
+          f"{np.mean(avg_f):8.4f}")
+    return 0
+
+
+def _baseline(args) -> int:
+    """Closed-form baseline ADE/FDE on the held-out scene, or with ``--scene
+    all`` on every scene and their average; no device."""
+    from mmtraj_torch.baselines import evaluate_baseline
+    from mmtraj_torch.config import Config
+    from mmtraj_torch.data.collate import WindowDataset
+    from mmtraj_torch.data.registry import load_scene_windows
+
+    cfg = _apply_overrides(Config(), args)
+    scenes = SCENES if args.scene == "all" else (cfg.data.scene,)
+    rows = []
+    for scene in scenes:
+        windows = load_scene_windows(cfg.data.data_dir, scene, cfg.data.obs_len,
+                                     cfg.data.pred_len, cfg.data.stride, cfg.data.min_agents)
+        # No device shapes to keep: pad to the densest window, so no agent drops.
+        n_max = max(cfg.data.n_max, max((w.shape[0] for w in windows), default=1))
+        m = evaluate_baseline(WindowDataset(windows, n_max), cfg.data.obs_len, args.baseline)
+        rows.append(m)
+        print(f"scene={scene} windows={m['n_windows']} "
+              f"agents={m['n_agents']}: {args.baseline.upper()} "
+              f"ADE={m['min_ade']:.4f}m FDE={m['min_fde']:.4f}m")
+    if len(rows) > 1:
+        print(f"average over {len(rows)} scenes: "
+              f"ADE={sum(m['min_ade'] for m in rows) / len(rows):.4f}m "
+              f"FDE={sum(m['min_fde'] for m in rows) / len(rows):.4f}m")
+    return 0
+
+
+def _generate_data(args) -> int:
+    from mmtraj_torch.data.synthetic import write_synthetic_dataset
+
+    write_synthetic_dataset(args.data_dir, args.seed, args.n_frames)
+    print(f"wrote synthetic scenes {SCENES} to {args.data_dir}")
+    return 0
+
+
+def _profile_stats(args) -> int:
+    from mmtraj_torch.utils.profiling import print_trace_summary
+
+    print_trace_summary(args.trace_dir, args.top)
     return 0
 
 
@@ -460,8 +814,18 @@ def _predict(args, parser) -> int:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if getattr(args, "scene", None) == "all" and args.cmd not in ("train", "baseline"):
+        parser.error("--scene all (5-fold leave-one-out) is train/baseline-only")
     if args.cmd == "train":
         return _train(args, parser)
+    if args.cmd == "eval-loo":
+        return _eval_loo(args, parser)
+    if args.cmd == "baseline":
+        return _baseline(args)
+    if args.cmd == "generate-data":
+        return _generate_data(args)
+    if args.cmd == "profile-stats":
+        return _profile_stats(args)
     if args.cmd == "autotune-eval":
         return _autotune(args)
     if args.cmd == "convert":

@@ -41,8 +41,8 @@ class Checkpoint(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port cannot run,
-    ``ValueError`` for one that does not exist."""
+    """Raise ``ValueError`` for a configuration that does not exist (an
+    unknown encoder, cell, dtype or head)."""
     if cfg.encoder not in ("rnn", "attn"):
         raise ValueError(f"unknown encoder {cfg.encoder!r}; choose 'rnn' or 'attn'")
     if cfg.cell not in ("gru", "lstm"):

@@ -62,7 +62,8 @@ from mmtraj_torch.models.forecaster import Forecaster
 from mmtraj_torch.parallel.mesh import all_reduce_sum, is_writer, shard_batch
 from mmtraj_torch.params import save_npz
 from mmtraj_torch.train import (Optimizer, StepDraws, TrainResult, _GraphedStep, data_mesh,
-                                index_stream, objective, run_chunk, shard_draws, step_draws)
+                                index_stream, objective, replays_graph, run_chunk, shard_draws,
+                                step_draws)
 from mmtraj_torch.utils.logging import MetricsLogger
 
 
@@ -130,8 +131,8 @@ def make_population_step(model: Forecaster, params: Dict[str, torch.Tensor],
     parameters (``stack_lanes``), which it trains in place with
     ``optimizer`` (``Optimizer(params, cfg, lanes=True)``) and moves ``ema``
     (stacked like ``params``) after each update.  Lane s draws
-    ``step_draws`` of ``seeds[s]``.  On the CPU the steps run eagerly; on
-    CUDA a chunk of M > 1 steps replays one captured step M times
+    ``step_draws`` of ``seeds[s]``.  On the CPU, and under
+    ``enable_nan_debugging``, the steps run eagerly; otherwise on CUDA a chunk of M > 1 steps replays one captured step M times
     (``pop.capture_launches`` holds the capture's kernel launches).
 
     With a ``mesh`` every rank passes the same indices and takes its rows of
@@ -194,6 +195,7 @@ def make_population_step(model: Forecaster, params: Dict[str, torch.Tensor],
     state = stacked + optimizer.state() + ema_list
     graphed: List[_GraphedStep] = []
     capture_launches: Dict[str, int] = {}
+    said: list = []
 
     def pop(xy_all, mask_all, idx_chunk, step_ids: Sequence[int]) -> torch.Tensor:
         idx_chunk = np.asarray(idx_chunk, np.int64)
@@ -204,7 +206,7 @@ def make_population_step(model: Forecaster, params: Dict[str, torch.Tensor],
         if len(step_ids) != M:
             raise ValueError(f"{len(step_ids)} step ids for an index chunk of {M} steps")
         N = mask_all.shape[1]
-        if model.device.type != "cuda" or M == 1:
+        if M == 1 or not replays_graph(model.device, said):
             losses = []
             for idx, s in zip(torch.from_numpy(idx_chunk), step_ids):
                 idx = idx.to(model.device)

@@ -34,6 +34,7 @@ import gc
 import itertools
 import math
 import os
+import sys
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
@@ -52,6 +53,7 @@ from mmtraj_torch.ops import _build, launch_counters
 from mmtraj_torch.parallel.mesh import all_reduce_sum, is_writer, make_mesh, shard_batch
 from mmtraj_torch.params import State, save_npz
 from mmtraj_torch.utils.logging import MetricsLogger
+from mmtraj_torch.utils.profiling import nan_debugging
 
 CAPTURE_WARMUP = 2  # eager steps on a side stream before a step's capture
 
@@ -520,6 +522,22 @@ def run_chunk(graphed: list, make, model, params, xy_all, mask_all, idx_chunk: n
     return losses
 
 
+def replays_graph(device: torch.device, said: list) -> bool:
+    """Whether a chunk of steps replays a CUDA graph: on the card, unless
+    ``enable_nan_debugging``'s per-op check is on, which a graph cannot
+    hold; the chunk's steps then run eagerly on the card, and the first such
+    chunk says so on stderr (``said`` remembers it)."""
+    if device.type != "cuda":
+        return False
+    if not nan_debugging():
+        return True
+    if not said:
+        said.append(True)
+        print("debug-nans: each step of a chunk runs eagerly (a CUDA graph cannot hold the "
+              "per-op NaN check)", file=sys.stderr, flush=True)
+    return False
+
+
 def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormStats,
                           ema: Forecaster = None, ema_decay: float = 0.0,
                           augment_rotate: bool = False, augment_flip: bool = False,
@@ -535,7 +553,8 @@ def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormSt
     Step k gathers rows ``idx_chunk[k]`` of the window set and runs the same
     one-step core as ``make_train_step`` with ``step_draws`` of
     ``step_ids[k]``: the same batches, draws, optimizer and EMA math as M
-    single steps.  On the CPU the steps run eagerly.  On CUDA the first call
+    single steps.  On the CPU, and under ``enable_nan_debugging``, the steps
+    run eagerly.  Otherwise, on CUDA, the first call
     captures one step as a CUDA graph (after ``CAPTURE_WARMUP`` steps on a
     side stream; the state they trained is restored, so the chunk follows the
     per-step run from its first step), and every step is a replay: the index
@@ -560,6 +579,7 @@ def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormSt
     params = list(model.parameters())
     graphed: List[_GraphedStep] = []
     capture_launches: Dict[str, int] = {}
+    said: list = []
 
     def multi(xy_all, mask_all, idx_chunk, step_ids: Sequence[int]) -> torch.Tensor:
         idx_chunk = np.asarray(idx_chunk, np.int64)
@@ -568,9 +588,10 @@ def make_multi_train_step(model: Forecaster, optimizer: Optimizer, stats: NormSt
         if len(step_ids) != M:
             raise ValueError(f"{len(step_ids)} step ids for an index chunk of {M} steps")
         N = mask_all.shape[1]
-        if model.device.type != "cuda":
+        if not replays_graph(model.device, said):
             losses = []
             for idx, s in zip(torch.from_numpy(idx_chunk), step_ids):
+                idx = idx.to(model.device)
                 losses.append(core(xy_all[idx], mask_all[idx], draw(s, B, N)))
             return torch.stack(losses)
 

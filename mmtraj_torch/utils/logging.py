@@ -1,9 +1,12 @@
-"""Structured metrics logging: stdout and JSONL (counterpart of
-``mmtraj/utils/logging.py``).
+"""Structured metrics logging: stdout, JSONL and optionally TensorBoard
+(counterpart of ``mmtraj/utils/logging.py``).
 
 Every record is printed and appended to ``{out_dir}/metrics.jsonl`` as one
-JSON object with the step and the seconds since the logger was made.  The
-JAX package's TensorBoard mirror is not ported.
+JSON object with the step and the seconds since the logger was made.  With
+``tensorboard=True`` its float values are also written as TensorBoard
+scalars under ``{out_dir}/tb`` (``torch.utils.tensorboard.SummaryWriter``);
+where the ``tensorboard`` package is missing the logger says so and goes on
+with JSONL only.
 """
 
 from __future__ import annotations
@@ -17,12 +20,22 @@ import numpy as np
 
 
 class MetricsLogger:
-    def __init__(self, out_dir: Optional[str] = None, quiet: bool = False):
+    def __init__(self, out_dir: Optional[str] = None, quiet: bool = False,
+                 tensorboard: bool = False):
         self.quiet = quiet
         self._fh = None
+        self._tb = None
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             self._fh = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+            if tensorboard:
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+                except ImportError:
+                    print("[logging] tensorboard requested but it is not installed; "
+                          "continuing with JSONL only", flush=True)
+                else:
+                    self._tb = SummaryWriter(os.path.join(out_dir, "tb"))
         self._t0 = time.time()
 
     def log(self, step: int, **metrics: Any) -> None:
@@ -36,6 +49,10 @@ class MetricsLogger:
         if self._fh:
             self._fh.write(json.dumps(rec) + "\n")
             self._fh.flush()
+        if self._tb:
+            for k, v in rec.items():
+                if k not in ("step", "t") and isinstance(v, float):
+                    self._tb.add_scalar(k, v, step)
         if not self.quiet:
             parts = " ".join(
                 f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
@@ -48,3 +65,6 @@ class MetricsLogger:
         if self._fh:
             self._fh.close()
             self._fh = None
+        if self._tb:
+            self._tb.close()
+            self._tb = None

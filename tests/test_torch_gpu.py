@@ -161,6 +161,50 @@ def test_gat_lanes_kernel_matches_plain(cuda, s, b, n):
     assert torch.equal(vmapped, got)
 
 
+@pytest.mark.parametrize("s, b, n", [(5, 16, 64), (3, 2, 100), (2, 1, 8)])
+def test_gat_lanes_kernel_lane_equals_a_single_launch(cuda, s, b, n):
+    """Lane i of ``fused_gat_lanes`` runs the code of a single ``fused_gat``
+    launch on lane i's graphs and weights (``gat.cu``'s ``Dims::lane``
+    offsets only the weight pointers), so it equals that launch to the bit."""
+    rng = np.random.default_rng(7 * s + n)
+    d, heads, hd, dout = 64, 4, 64, 64
+    h = torch.stack([_t(rng, b, n, d) for _ in range(s)])
+    att = torch.stack([_attend_tile(rng, b, n, cuda) for _ in range(s)])
+    ws = [torch.stack([_t(rng, *shape, scale=0.3) for _ in range(s)]) for shape in (
+        (d, hd), (heads, hd // heads), (heads, hd // heads), (hd, dout), (dout,))]
+    got = fused_gat.fused_gat_lanes(h, att, *ws, heads)
+    for i in range(s):
+        one = fused_gat.fused_gat(h[i], att[i], *(w[i] for w in ws), heads)
+        torch.cuda.synchronize()
+        assert torch.equal(got[i], one), (i, (got[i] - one).abs().max().item())
+
+
+@pytest.mark.parametrize("n_cap", [16, 32, 64])
+def test_occupancy_bench_route_a_matches_plain(cuda, n_cap):
+    """The occupancy bench's route A (``fused_gat`` and ``fused_decode``) at
+    each bucket capacity, at the bucket's batch and on the bench's inputs,
+    against its plain route on one stream: within 1e-3 m on valid agents,
+    at most 1% of the rollouts further off; each kernel launched."""
+    from mmtraj_torch.benchmarks import occupancy_bench as occ
+
+    model_a, stats = occ.make_model("A", cuda)
+    plain, _ = occ.make_model("plain", cuda)
+    k = 20
+    b = occ.bucket_batch(model_a, k, n_cap)
+    xy_obs, mask = occ.rate_inputs(model_a, n_cap, b, np.array([n_cap]),
+                                   np.random.default_rng(n_cap))
+    stream = plain._rollout_stream(k * b, n_cap, torch.Generator(device=cuda).manual_seed(3))
+    before = (fused_gat.fused_gat.launches, fused_decoder.fused_decode.launches)
+    got = model_a.rollout_k(xy_obs, mask, stats, k, stream=stream)
+    torch.cuda.synchronize()
+    assert (fused_gat.fused_gat.launches, fused_decoder.fused_decode.launches) == (
+        before[0] + 8, before[1] + 1)
+    want = plain.rollout_k(xy_obs, mask, stats, k, stream=stream)
+    assert torch.isfinite(got).all() and got.shape == (k, b, n_cap, 12, 2)
+    err = torch.where(mask[None, :, :, None, None], (got - want).abs(), 0.0).flatten(2).amax(2)
+    assert int((err > 1e-3).sum()) <= 0.01 * err.numel(), err.max().item()
+
+
 def _model(device, **flags):
     cfg = ModelConfig(hidden_dim=32, embed_dim=32, num_heads=4, **flags)
     return Forecaster(cfg, 8, 12, device=device, generator=torch.Generator().manual_seed(0))
