@@ -147,6 +147,19 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    bench (routes plain and A at N = 16, 32, 64) and its evaluate wall on
    ``mixed`` (bucketed ADE within 1e-5 m of padded, exact launches); and
    ``mmtraj_torch.entry.entry()``'s loss.
+16. (run before 7's line) the importers, the native parser, ``visualize``
+   and the build directory: the native annotation parser built with g++
+   into the build directory and ``native_available()``; the five scenes of
+   ``data/synthetic3000`` parsed natively and by numpy, ``np.array_equal``,
+   with rows/s of both; ``IMPORT_SCENE`` written as an 8-column obsmat and
+   as a ``.vsp`` at ``VSP_SCALE`` m a pixel, through ``cli import-obsmat``
+   and ``cli import-vsp`` (rows equal to the original's); ``evaluate()`` on
+   route A of the imported obsmat scene, read through the registry, within
+   ``IMPORT_ADE_TOL`` of the original file, with exact launches;
+   ``cli.visualize_rollouts`` on route A and plain from one stream (the
+   1e-3 m / 1% rule, exact launches; no PNG: matplotlib is not needed on
+   the card's machine); ``cli cache`` on the live build directory, and
+   ``--trim-gb`` and ``--clear`` on a copy of it.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -227,6 +240,11 @@ STREAM_BENCH_WINDOWS, STREAM_BENCH_B, STREAM_BENCH_STEPS = 2000, 256, 10
 LOO_FRAMES, LOO_STEPS, LOO_M, LOO_SEEDS = 120, 20, 10, (0, 1)
 PROFILE_SCENE, PROFILE_STEPS = "eth", 2
 OCC_ITERS, OCC_WALL_WINDOWS = 20, 300
+# Phase 16: the scene imported as obsmat and evaluated, its eval batch; the .vsp
+# scale (a power of two, so pixels times it give back the meters exactly); the
+# parser timing rounds; visualize's windows.
+IMPORT_SCENE, IMPORT_EVAL_B, VSP_SCALE, PARSE_ROUNDS, VIZ_WINDOWS = "hotel", 64, 1 / 64, 3, 6
+IMPORT_ADE_TOL = 1e-6  # meters: the imported scene against the original file
 # Phase 12 (bf16): a kernel route's step against the plain route's from the
 # same state, of the new hidden state's largest |value|; best-of-K ADE/FDE of
 # two bf16 routes, meters.
@@ -1954,6 +1972,172 @@ def protocol_phase(torch, dev, card, counted, zero) -> None:
     log("protocol " + json.dumps(summary))
 
 
+def importers_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted, zero) -> None:
+    """Phase 16: the importers, the native parser, ``visualize``'s rollouts
+    and the build directory, through the port's entry points
+    (``mmtraj_torch.cli.main`` in-process, ``evaluate``,
+    ``cli.visualize_rollouts``)."""
+    from mmtraj_torch import cli as torch_cli
+    from mmtraj_torch import evaluate as ev
+    from mmtraj_torch.data import native
+    from mmtraj_torch.data.collate import WindowDataset
+    from mmtraj_torch.data.parser import read_annotation_file
+    from mmtraj_torch.data.registry import load_scene_windows
+    from mmtraj_torch.data.transforms import NormStats
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.native import build as native_build
+    from mmtraj_torch.params import Checkpoint
+    from mmtraj_torch.utils import build_cache
+
+    summary = {"card": card}
+    # 1. The parser: built into the build directory, loaded, equal to numpy's.
+    t0 = time.perf_counter()
+    lib = Path(native_build.build())
+    live = Path(build_cache.resolve_cache_dir())
+    check(lib.parent == live and lib.exists(), f"native parser at {lib}, build dir {live}")
+    check(native.native_available(), "native parser unavailable (g++ -O3 -shared -fPIC)")
+    summary["parser_build_s"] = time.perf_counter() - t0
+    files = sorted(EVAL_DATA.glob("*.txt"))
+    check(len(files) == 5, f"data/synthetic3000 holds {len(files)} scenes")
+    secs = {"native": [], "numpy": []}
+    for _ in range(PARSE_ROUNDS):  # in turns
+        for name, read in (("native", native.read_annotation_file_native),
+                           ("numpy", read_annotation_file)):
+            t0 = time.perf_counter()
+            rows = [read(str(f)) for f in files]
+            secs[name].append(time.perf_counter() - t0)
+            if name == "native":
+                got = rows
+        for f, a, b in zip(files, got, rows):
+            check(np.array_equal(a, b), f"native parse of {f.name} differs from numpy's")
+    n_rows = sum(len(r) for r in rows)
+    rate = {k: n_rows / min(v) for k, v in secs.items()}
+    summary.update(parse_rows=n_rows, parse_rows_per_s=rate,
+                   parse_s={k: v for k, v in secs.items()})
+    log(f"parsers on the host, {n_rows} rows of 5 scenes, best of {PARSE_ROUNDS} in turns: "
+        f"native {rate['native']:.0f} rows/s, numpy {rate['numpy']:.0f} rows/s "
+        f"({rate['native'] / rate['numpy']:.2f}x); all 5 scenes np.array_equal; {card}")
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_import_", dir=root))
+    env_before = os.environ.get(build_cache.ENV_DIR)
+    try:
+        # 2. The scene written as raw obsmat and .vsp, imported through the CLI.
+        rows = read_annotation_file(str(EVAL_DATA / f"{IMPORT_SCENE}.txt"))
+        zeros = np.zeros((len(rows), 1))
+        raw = np.hstack([rows[:, :3], zeros, rows[:, 3:4], zeros, zeros, zeros])
+        np.savetxt(tmp / "obsmat.txt", raw)  # %.18e: every value round-trips
+        peds = np.unique(rows[:, 1])
+        lines = [f"{len(peds)} - the number of splines"]
+        for pid in peds:
+            track = rows[rows[:, 1] == pid]
+            lines.append(f"{len(track)} - the number of control points")
+            lines += [f"{x / VSP_SCALE:.6f} {y / VSP_SCALE:.6f} {int(fr)} 0.0"
+                      for fr, _, x, y in track]
+        (tmp / "scene.vsp").write_text("\n".join(lines) + "\n")
+        imported = {}
+        for name, args in (("obsmat", ["import-obsmat", "--src", str(tmp / "obsmat.txt")]),
+                           ("vsp", ["import-vsp", "--src", str(tmp / "scene.vsp"),
+                                    "--scale", repr(VSP_SCALE)])):
+            (tmp / name).mkdir()
+            dst = tmp / name / f"{IMPORT_SCENE}.txt"
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                code = torch_cli.main([*args, "--dst", str(dst)])
+            check(code == 0 and out.getvalue() == f"wrote {len(rows)} rows: {args[2]} -> {dst}\n",
+                  f"cli {args[0]}: exit {code}, {out.getvalue()!r}")
+            imported[name] = native.read_annotation_file_native(str(dst))
+        check(np.array_equal(imported["obsmat"], rows), "imported obsmat rows differ")
+        index = np.searchsorted(peds, rows[:, 1]).astype(np.float64)  # .vsp numbers peds 0..P-1
+        check(np.array_equal(imported["vsp"], np.column_stack([rows[:, 0], index, rows[:, 2:]])),
+              "imported .vsp rows differ from the original's with its pedestrians numbered")
+        log(f"cli import-obsmat and import-vsp (scale {VSP_SCALE} m/px) of {IMPORT_SCENE}: "
+            f"{len(rows)} rows each, equal to the original's")
+
+        # 3. evaluate() on route A of the imported obsmat scene against the original.
+        model_a = Forecaster(route_a, TO, TP, device=dev, state=state)
+        stats = NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32))
+        metrics = {}
+        for name, data_dir in (("original", EVAL_DATA), ("obsmat", tmp / "obsmat")):
+            ds = WindowDataset(load_scene_windows(str(data_dir), IMPORT_SCENE, TO, TP), N)
+            t0 = time.perf_counter()
+            m, counts = counted(lambda: ev.evaluate(model_a, stats, ds, K, IMPORT_EVAL_B))
+            batches = math.ceil(len(ds) / IMPORT_EVAL_B)
+            want = {**zero, "fused_gat": batches * (TO + TP), "fused_decode": batches}
+            check(counts == want, f"evaluate {name}: launches {counts}, want {want}")
+            check(math.isfinite(m["min_ade"]) and math.isfinite(m["min_fde"]), f"{name}: {m}")
+            metrics[name] = m
+            log(f"evaluate route A on {name} {IMPORT_SCENE} ({len(ds)} windows, B = "
+                f"{IMPORT_EVAL_B}, {time.perf_counter() - t0:.2f} s): ADE {m['min_ade']:.6f} m, "
+                f"FDE {m['min_fde']:.6f} m; launches {counts}")
+        d = {k: abs(metrics["obsmat"][k] - metrics["original"][k]) for k in ("min_ade", "min_fde")}
+        check(max(d.values()) <= IMPORT_ADE_TOL, f"imported scene vs original: {d}")
+        summary["import_eval_abs_diff"] = d
+
+        # 4. visualize's rollouts, route A against plain from one stream.
+        ck = Checkpoint(state, stats, cfg.replace(
+            data=dataclasses.replace(cfg.data, data_dir=str(EVAL_DATA))), 0)
+        plain = Forecaster(plain_cfg, TO, TP, device=dev, state=state)
+        stream = plain._rollout_stream(K * VIZ_WINDOWS, N,
+                                       torch.Generator(device=dev).manual_seed(5))
+        rolls = {}
+        for name, model_cfg, expect in (("A", route_a, {"fused_gat": TO, "fused_decode": 1}),
+                                        ("plain", plain_cfg, {})):
+            (xy, mask, roll), counts = counted(lambda: torch_cli.visualize_rollouts(
+                ck, ck.config.replace(model=model_cfg), VIZ_WINDOWS, 0, dev, stream=stream))
+            check(counts == {**zero, **expect}, f"visualize {name}: launches {counts}")
+            check(roll.shape == (K, VIZ_WINDOWS, N, TP, 2) and np.isfinite(roll).all(),
+                  f"visualize {name}: {roll.shape}, finite {np.isfinite(roll).all()}")
+            rolls[name] = (xy, roll)
+        check(np.array_equal(rolls["A"][0], rolls["plain"][0]), "visualize picked other windows")
+        per = np.where(mask[None, :, :, None, None], np.abs(rolls["A"][1] - rolls["plain"][1]),
+                       0.0).reshape(K, VIZ_WINDOWS, -1).max(2)
+        n_bad = int((per > ROLLOUT_TOL).sum())
+        check(n_bad <= MAX_DIVERGED * per.size,
+              f"visualize route A: {n_bad} of {per.size} rollouts past {ROLLOUT_TOL} m of plain")
+        log(f"visualize rollouts ({VIZ_WINDOWS} windows of univ, K={K}): route A launches "
+            f"{TO} fused_gat + 1 fused_decode, max abs err vs plain "
+            f"{per[per <= ROLLOUT_TOL].max():.3e} m, {n_bad} of {per.size} past {ROLLOUT_TOL} m")
+
+        # 5. cli cache on the live build directory; --trim-gb and --clear on a copy.
+        def cache(*flags):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                check(torch_cli.main(["cache", *flags]) == 0, f"cli cache {flags}")
+            text = out.getvalue()
+            return text, int(re.search(r"^entries: (\d+)$", text, re.M).group(1))
+
+        current = build_cache.current_libraries()
+        text, entries = cache()
+        names = {p.name for p in live.iterdir()}
+        check(f"cache dir: {live}" in text and entries >= len(current) and current <= names,
+              f"cli cache on {live}: {text!r}; current libraries {sorted(current)}")
+        copy = tmp / "build_copy"
+        shutil.copytree(live, copy)
+        stale = copy / "libgat-0000000000000000.so"  # an earlier tree's library
+        stale.write_bytes(b"\0" * 4096)
+        os.utime(stale, (0, 0))
+        os.environ[build_cache.ENV_DIR] = str(copy)
+        trimmed, left = cache("--trim-gb", "0")
+        check({p.name for p in copy.iterdir()} == current and left == len(current),
+              f"cli cache --trim-gb 0 on a copy: {trimmed!r}")
+        cleared, left = cache("--clear")
+        check(left == 0 and not any(copy.iterdir()), f"cli cache --clear on a copy: {cleared!r}")
+        check({p.name for p in live.iterdir()} == names, "the live build directory changed")
+        summary["cache"] = {"live_entries": entries, "trim": trimmed.splitlines()[0],
+                            "clear": cleared.splitlines()[0]}
+        log(f"cli cache: {live}: {entries} entries; on a copy --trim-gb 0 "
+            f"({trimmed.splitlines()[0]}) left the {len(current)} current libraries, "
+            f"--clear ({cleared.splitlines()[0]}) left none")
+    finally:
+        if env_before is None:
+            os.environ.pop(build_cache.ENV_DIR, None)
+        else:
+            os.environ[build_cache.ENV_DIR] = env_before
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("importers " + json.dumps(summary))
+
+
 def main() -> int:
     import torch
 
@@ -1987,7 +2171,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s wall; per kernel "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
     for name in _build.KERNELS:
-        for line in (_build.BUILD / f"{name}.log").read_text().splitlines():
+        for line in (_build.library_path(name).parent / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
@@ -2361,6 +2545,12 @@ def main() -> int:
     t0 = time.perf_counter()
     protocol_phase(torch, dev, card, counted, dict.fromkeys(counters, 0))
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. the importers, the native parser, visualize, the build directory -------------
+    t0 = time.perf_counter()
+    importers_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted,
+                    dict.fromkeys(counters, 0))
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

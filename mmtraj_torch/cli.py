@@ -18,9 +18,13 @@ that ``train --profile`` wrote), ``export`` (a frozen K-sample predictor
 as a ``torch.export`` .pt2 artifact), ``serve`` (JSON-lines requests on
 stdin answered from artifacts, protocol in ``mmtraj_torch/serve.py``) and
 ``predict`` (K sampled futures for every window of the held-out scene into
-an .npz).  The commands that read a checkpoint read any format
-``mmtraj_torch.checkpoint.load`` reads; an Orbax directory is converted
-with the JAX package's ``python -m mmtraj.cli convert`` first.
+an .npz), ``visualize`` (K sampled futures of a few windows plotted to a
+PNG; matplotlib), ``import-obsmat`` and ``import-vsp`` (raw BIWI obsmat and
+UCY .vsp annotations to the canonical ``frame ped x y`` text) and ``cache``
+(the size of the kernel build directory, ``--trim-gb``, ``--clear``).  The
+commands that read a checkpoint read any format ``mmtraj_torch.checkpoint.load``
+reads; an Orbax directory is converted with the JAX package's ``python -m
+mmtraj.cli convert`` first.
 
 Usage:
   python -m mmtraj_torch.cli generate-data --data-dir data/synthetic
@@ -42,6 +46,10 @@ Usage:
   python -m mmtraj_torch.cli export --ckpt runs/x/checkpoint.npz --out runs/x/predictor.pt2
   python -m mmtraj_torch.cli serve --artifact runs/x/predictor.pt2 --aggregate 8 < requests.jsonl
   python -m mmtraj_torch.cli predict --ckpt runs/x/checkpoint.npz --out predictions.npz
+  python -m mmtraj_torch.cli visualize --ckpt runs/x/checkpoint.npz --out predictions.png
+  python -m mmtraj_torch.cli import-obsmat --src obsmat.txt --dst data/real/eth.txt
+  python -m mmtraj_torch.cli import-vsp --src zara01.vsp --dst data/real/zara1.txt --scale 0.02
+  python -m mmtraj_torch.cli cache [--trim-gb 1 | --clear]
 
 It runs on the card unless ``--device cpu`` is given.
 """
@@ -293,6 +301,42 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--auto-n-max", action="store_true",
                     help="raise n_max to the densest window so no agent is dropped")
     rp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+    vp = sub.add_parser("visualize", help="render K-sample predictions to a PNG")
+    vp.add_argument("--ckpt", required=True)
+    _add_common(vp)
+    vp.add_argument("--out", default="predictions.png")
+    vp.add_argument("--windows", type=int, default=6)
+    vp.add_argument("--seed", type=int, default=0)
+    vp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+    op = sub.add_parser("import-obsmat",
+                        help="convert a raw BIWI/ETH obsmat (.txt/.mat) to canonical annotation "
+                             "txt (frame id x y)")
+    op.add_argument("--src", required=True, help="obsmat.txt or obsmat.mat")
+    op.add_argument("--dst", required=True, help="output path (e.g. data/real/eth.txt)")
+
+    vs = sub.add_parser("import-vsp",
+                        help="convert a raw UCY .vsp spline annotation (univ/zara) to canonical "
+                             "annotation txt via a pixel->meter homography")
+    vs.add_argument("--src", required=True, help="crowds .vsp file")
+    vs.add_argument("--dst", required=True, help="output path (e.g. data/real/zara1.txt)")
+    vs.add_argument("--homography", default=None,
+                    help="3x3 pixel->meter homography file (plain text, the form the UCY H "
+                         "matrices ship in)")
+    vs.add_argument("--scale", type=float, default=None,
+                    help="meters per pixel (axis-aligned fallback when no homography is "
+                         "available)")
+    vs.add_argument("--frame-step", type=int, default=10,
+                    help="annotation frame grid (default every 10th video frame = 0.4 s)")
+
+    cc = sub.add_parser("cache", help="the kernel build directory (mmtraj_torch/build, or "
+                                      "$MMTRAJ_TORCH_BUILD_CACHE): show size, trim, clear")
+    cc.add_argument("--clear", action="store_true", help="remove every entry")
+    cc.add_argument("--trim-gb", type=float, default=None,
+                    help="remove the least recently written entries until the directory is "
+                         "under this many GB, sparing the current libraries (default policy "
+                         "before a build: MMTRAJ_TORCH_BUILD_CACHE_MAX_GB, else 4)")
     return ap
 
 
@@ -811,6 +855,92 @@ def _predict(args, parser) -> int:
     return 0
 
 
+def visualize_rollouts(ck, cfg, n_windows: int, seed: int, device="cuda", stream=None):
+    """``visualize``'s windows and rollouts: ``n_windows`` windows of the
+    held-out scene picked as the JAX package picks them
+    (``default_rng(seed).choice(..., replace=False)``), K =
+    ``cfg.train.k_samples`` rollouts of each by ``Forecaster.rollout_k`` on
+    ``device`` with ``cfg.model``'s route and ``ck``'s parameters and stats.
+    ``stream``: a pre-drawn (gumbel, normal) as ``rollout_k`` takes it; else
+    drawn from a generator seeded with ``seed``.  -> (xy (B, N, To+Tp, 2),
+    mask (B, N), rollouts (K, B, N, Tp, 2)) as numpy."""
+    import numpy as np
+    import torch
+
+    from mmtraj_torch.data.collate import WindowDataset
+    from mmtraj_torch.data.registry import load_scene_windows
+    from mmtraj_torch.evaluate import _device_stats
+    from mmtraj_torch.models.forecaster import Forecaster
+
+    windows = load_scene_windows(cfg.data.data_dir, cfg.data.scene, cfg.data.obs_len,
+                                 cfg.data.pred_len, cfg.data.stride, cfg.data.min_agents)
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(windows), size=min(n_windows, len(windows)), replace=False)
+    ds = WindowDataset([windows[i] for i in pick], cfg.data.n_max)
+    model = Forecaster(cfg.model, cfg.data.obs_len, cfg.data.pred_len, device=device,
+                       state=ck.state)
+    xy = torch.as_tensor(ds.xy, device=model.device)
+    mask = torch.as_tensor(ds.mask, device=model.device)
+    generator = None if stream is not None else torch.Generator(model.device).manual_seed(seed)
+    rollouts = model.rollout_k(xy[:, :, :cfg.data.obs_len], mask,
+                               _device_stats(ck.stats, model.device), cfg.train.k_samples,
+                               generator=generator, stream=stream)
+    return ds.xy, ds.mask, rollouts.cpu().numpy()
+
+
+def _visualize(args) -> int:
+    from mmtraj_torch import checkpoint
+    from mmtraj_torch.utils.viz import render_predictions
+
+    ck = checkpoint.load(args.ckpt)
+    cfg = _apply_overrides(ck.config, args)
+    xy, mask, rollouts = visualize_rollouts(ck, cfg, args.windows, args.seed, args.device)
+    out = render_predictions(args.out, xy, mask, rollouts, cfg.data.obs_len, args.windows)
+    print(f"wrote {out} ({len(xy)} windows, K={cfg.train.k_samples}, "
+          f"scene={cfg.data.scene})")
+    return 0
+
+
+def _import_obsmat(args) -> int:
+    from mmtraj_torch.data.obsmat import convert_obsmat
+
+    n = convert_obsmat(args.src, args.dst)
+    print(f"wrote {n} rows: {args.src} -> {args.dst}")
+    return 0
+
+
+def _import_vsp(args, parser) -> int:
+    import numpy as np
+
+    from mmtraj_torch.data.vsp import convert_vsp
+
+    if (args.homography is None) == (args.scale is None):
+        parser.error("pass exactly one of --homography or --scale")
+    H = np.loadtxt(args.homography) if args.homography else None
+    n = convert_vsp(args.src, args.dst, homography=H, scale=args.scale,
+                    frame_step=args.frame_step)
+    print(f"wrote {n} rows: {args.src} -> {args.dst}")
+    return 0
+
+
+def _cache(args, parser) -> int:
+    from mmtraj_torch.utils.build_cache import cache_stats, clear_cache, trim_cache
+
+    try:
+        if args.clear:
+            n, b = clear_cache()
+            print(f"cleared {n} entries ({b / 1e6:.1f} MB)")
+        elif args.trim_gb is not None:
+            n, b = trim_cache(max_bytes=args.trim_gb * 1e9)
+            print(f"trimmed {n} entries ({b / 1e6:.1f} MB)")
+        s = cache_stats()
+    except ValueError as e:  # MMTRAJ_TORCH_BUILD_CACHE set to an "off" value
+        parser.error(str(e))
+    print(f"cache dir: {s['dir']}\nentries: {s['entries']}\n"
+          f"size: {s['total_bytes'] / 1e6:.1f} MB")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -836,6 +966,14 @@ def main(argv=None) -> int:
         return _serve(args)
     if args.cmd == "predict":
         return _predict(args, parser)
+    if args.cmd == "visualize":
+        return _visualize(args)
+    if args.cmd == "import-obsmat":
+        return _import_obsmat(args)
+    if args.cmd == "import-vsp":
+        return _import_vsp(args, parser)
+    if args.cmd == "cache":
+        return _cache(args, parser)
     from mmtraj_torch import checkpoint
     from mmtraj_torch.evaluate import evaluate
     from mmtraj_torch.models.forecaster import Forecaster

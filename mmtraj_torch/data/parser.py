@@ -3,8 +3,8 @@
 
 Rows are ``frame_id ped_id x y``, separated by whitespace, tabs or commas:
 world coordinates in meters, one row per (frame, pedestrian), frames every
-0.4 s.  The JAX package's native C++ parser promises the same output as this
-numpy one; the port has only the numpy parser.
+0.4 s.  The native C++ parser (``data/native.py``), which the registry reads
+with, gives the same output as this numpy one.
 """
 
 from __future__ import annotations

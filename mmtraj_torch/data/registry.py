@@ -1,6 +1,7 @@
 """Scene registry and the 5-scene leave-one-out split (counterpart of
 ``mmtraj/data/registry.py``).  A scene's files are ``{data_dir}/{scene}.txt``
-and any ``{data_dir}/{scene}/*.txt``, read with the numpy parser."""
+and any ``{data_dir}/{scene}/*.txt``, read with the native parser
+(``data/native.py``; the numpy parser where no C++ compiler is found)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import List, Tuple
 import numpy as np
 
 from mmtraj_torch.config import SCENES
-from mmtraj_torch.data.parser import read_annotation_file
+from mmtraj_torch.data.native import read_annotation_file_fast as read_annotation_file
 from mmtraj_torch.data.windower import make_windows
 
 

@@ -1,11 +1,16 @@
 """Build the CUDA kernels in ``mmtraj_torch/csrc`` at first use and load them.
 
 Each ``csrc/<name>.cu`` (with the shared headers ``csrc/*.cuh``) compiles with
-``nvcc`` for Hopper (``sm_90a``) into ``mmtraj_torch/build/lib<name>-<hash>.so``,
-a shared library with a plain C interface that ``ctypes`` loads.  The hash
-covers the source, every header and the flags, so an edited or added header
-builds anew and an unchanged tree loads from the build directory.  Nothing
-here runs at import.
+``nvcc`` for Hopper (``sm_90a``) into ``<build dir>/lib<name>-<hash>.so``, a
+shared library with a plain C interface that ``ctypes`` loads.  The build
+directory is ``mmtraj_torch.utils.build_cache.resolve_cache_dir()``:
+``$MMTRAJ_TORCH_BUILD_CACHE`` where set, else ``mmtraj_torch/build/``; the
+first build in a process trims it to its cap, sparing the current libraries.
+The hash covers the source, every header and the flags, so an edited or added
+header builds anew and an unchanged tree loads from the build directory.
+Nothing here runs at import, and the module imports torch only inside the
+functions that take a tensor, so the host-side parser's build can name
+these libraries without it.
 """
 
 from __future__ import annotations
@@ -19,11 +24,9 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-import torch
+from mmtraj_torch.utils import build_cache
 
-PKG = Path(__file__).resolve().parents[1]
-CSRC = PKG / "csrc"
-BUILD = PKG / "build"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("attend", "attend_packed", "gat", "decoder")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -49,15 +52,15 @@ def library_path(name: str) -> Path:
     for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return Path(build_cache.resolve_cache_dir()) / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every library in ``names`` that is not built yet, one ``nvcc``
     process each, all started together.  Returns the seconds each took (0.0
-    for one found built); the compiler's output goes to ``build/<name>.log``.
+    for one found built); the compiler's output goes to ``<build dir>/<name>.log``.
     Raises with that output if a build fails."""
-    BUILD.mkdir(parents=True, exist_ok=True)
+    out_dir = build_cache.build_dir()
     procs, seconds = {}, {}
     for name in names:
         so = library_path(name)
@@ -72,7 +75,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     for name, (proc, tmp, so, t0) in procs.items():
         out, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        (BUILD / f"{name}.log").write_text(out)
+        (out_dir / f"{name}.log").write_text(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed for csrc/{name}.cu:\n{out}")
             continue
@@ -114,8 +117,12 @@ def occupancy(name: str, *shape: int) -> Dict[str, int]:
     return out
 
 
-def check_cuda(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and ``shape``."""
+def check_cuda(t: torch.Tensor, name: str, shape, dtype=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (default
+    float32) and ``shape``."""
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
     if t.dtype != dtype:
@@ -127,6 +134,8 @@ def check_cuda(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
+    import torch
+
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -292,6 +292,37 @@ def test_dense_crowd_auto_route_launches_attend(cuda, encoder, count):
     assert int((err > 1e-3).sum()) <= 0.01 * err.numel() + 1, err
 
 
+def test_visualize_rollouts_route_a_launches_and_matches_plain(cuda, tmp_path):
+    """``cli visualize``'s rollouts (``cli.visualize_rollouts``) of a route-A
+    checkpoint: ``fused_gat`` x8 and ``fused_decode`` x1 a call, and within
+    1e-3 m of the plain route's from one stream (at most 1% further)."""
+    from mmtraj_torch.cli import visualize_rollouts
+    from mmtraj_torch.config import config4
+    from mmtraj_torch.data.synthetic import write_synthetic_dataset
+    from mmtraj_torch.params import Checkpoint
+
+    write_synthetic_dataset(str(tmp_path), seed=0, n_frames=120)
+    cfg = config4()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, data_dir=str(tmp_path)))
+    plain = Forecaster(cfg.model, 8, 12, device=cuda, generator=torch.Generator().manual_seed(0))
+    ck = Checkpoint(plain.state_dict(), NormStats(np.zeros(2, np.float32),
+                                                  np.full(2, 0.4, np.float32)), cfg, 0)
+    route_a = cfg.replace(model=dataclasses.replace(cfg.model, use_pallas=True,
+                                                    use_fused_decoder=True))
+    b, k = 6, cfg.train.k_samples
+    stream = plain._rollout_stream(k * b, cfg.data.n_max,
+                                   torch.Generator(device=cuda).manual_seed(4))
+    before = (fused_gat.fused_gat.launches, fused_decoder.fused_decode.launches)
+    xy, mask, got = visualize_rollouts(ck, route_a, b, 0, cuda, stream=stream)
+    assert (fused_gat.fused_gat.launches, fused_decoder.fused_decode.launches) == (
+        before[0] + 8, before[1] + 1)
+    xy_p, mask_p, want = visualize_rollouts(ck, cfg, b, 0, cuda, stream=stream)
+    np.testing.assert_array_equal(xy, xy_p)
+    assert np.isfinite(got).all() and got.shape == (k, b, cfg.data.n_max, 12, 2)
+    err = np.where(mask[None, :, :, None, None], np.abs(got - want), 0.0).reshape(k, b, -1).max(2)
+    assert int((err > 1e-3).sum()) <= 0.01 * err.size, err.max()
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     rng = np.random.default_rng(1)
     v, s = _t(rng, 2, 8, 16), _t(rng, 2, 8, 2)
