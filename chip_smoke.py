@@ -160,6 +160,18 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    1e-3 m / 1% rule, exact launches; no PNG: matplotlib is not needed on
    the card's machine); ``cli cache`` on the live build directory, and
    ``--trim-gb`` and ``--clear`` on a copy of it.
+17. (run before 7's line) the JAX package's native checkpoint, an Orbax
+   directory, with no JAX, orbax or tensorstore on the machine: the committed
+   ``tests/fixtures/torch_orbax_c4`` (written by the JAX package's
+   ``save_orbax``: zarr arrays in an OCDBT store, zstd chunks) loaded by
+   ``checkpoint.load`` equal to its twin ``torch_orbax_c4_twin.npz`` to the
+   bit; route A ``rollout_k`` (B = 25, N = 64, K = 20, one stream) from the
+   model loaded from each, equal to the bit with exact launches; the port's
+   ``save`` to a suffix-less path read back equal; ``cli convert`` from the
+   directory to ``.npz`` and from ``.npz`` to a directory, equal; a copy
+   with one byte of its top-level node flipped raising ``CheckpointError``;
+   the load's seconds (median of ``ORBAX_ROUNDS``) and the zstd decoder's
+   output rate on the fixture's chunks.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -244,6 +256,9 @@ OCC_ITERS, OCC_WALL_WINDOWS = 20, 300
 # scale (a power of two, so pixels times it give back the meters exactly); the
 # parser timing rounds; visualize's windows.
 IMPORT_SCENE, IMPORT_EVAL_B, VSP_SCALE, PARSE_ROUNDS, VIZ_WINDOWS = "hotel", 64, 1 / 64, 3, 6
+# phase 17: the JAX package's Orbax checkpoint (config 4, step 1234); its twin is *_twin.npz
+ORBAX_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_orbax_c4"
+ORBAX_ROUNDS = 5  # loads and zstd passes timed; the median is reported
 IMPORT_ADE_TOL = 1e-6  # meters: the imported scene against the original file
 # Phase 12 (bf16): a kernel route's step against the plain route's from the
 # same state, of the new hidden state's largest |value|; best-of-K ADE/FDE of
@@ -2138,6 +2153,107 @@ def importers_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted, z
     log("importers " + json.dumps(summary))
 
 
+def orbax_phase(torch, dev, card, route_a_of, xy_obs, mask, counted, zero) -> None:
+    """Phase 17: the JAX package's Orbax directory through the port's
+    ``checkpoint.load``/``save`` and ``cli convert``, with no JAX, orbax or
+    tensorstore imported."""
+    from mmtraj_torch import checkpoint
+    from mmtraj_torch import cli as torch_cli
+    from mmtraj_torch.data.transforms import NormStats
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.orbax_io import zstd
+    from mmtraj_torch.orbax_io.ocdbt import OcdbtReader
+
+    def same(a, b, label):
+        check(sorted(a.state) == sorted(b.state), f"{label}: keys differ")
+        for k in a.state:
+            check(torch.equal(a.state[k].cpu(), b.state[k].cpu()), f"{label}: {k} differs")
+        for x, y in ((a.stats.mean, b.stats.mean), (a.stats.std, b.stats.std)):
+            check(np.array_equal(np.asarray(x), np.asarray(y)), f"{label}: stats differ")
+        check(a.config == b.config and a.step == b.step,
+              f"{label}: config or step differ ({a.step} vs {b.step})")
+
+    # 1. the load, timed, against the twin
+    secs = []
+    for _ in range(ORBAX_ROUNDS):
+        t0 = time.perf_counter()
+        ck = checkpoint.load(str(ORBAX_FIXTURE))
+        secs.append(time.perf_counter() - t0)
+    foreign = [m for m in ("jax", "jaxlib", "orbax", "tensorstore", "zstandard") if m in sys.modules]
+    check(not foreign, f"the Orbax load imported {foreign}")
+    twin = checkpoint.load(str(ORBAX_FIXTURE.with_name(ORBAX_FIXTURE.name + "_twin.npz")))
+    same(ck, twin, "Orbax fixture vs its .npz twin")
+    check(ck.step == 1234 and sum(v.numel() for v in ck.state.values()) == 72798,
+          f"fixture: step {ck.step}, {sum(v.numel() for v in ck.state.values())} parameters")
+
+    # 2. route A from the model of each, one stream, exact launches
+    route_a = route_a_of(ck.config.model)
+    stats = NormStats(torch.as_tensor(ck.stats.mean, device=dev),
+                      torch.as_tensor(ck.stats.std, device=dev))
+    models = {name: Forecaster(route_a, TO, TP, device=dev, state=c.state)
+              for name, c in (("orbax", ck), ("npz", twin))}
+    stream = models["npz"]._rollout_stream(K * B, N, torch.Generator(device=dev).manual_seed(17))
+    rolls = {}
+    for name, model in models.items():
+        roll, counts = counted(lambda: model.rollout_k(xy_obs, mask, stats, K, stream=stream))
+        want = {**zero, "fused_gat": TO, "fused_decode": 1}
+        check(counts == want, f"route A from the {name} checkpoint: launches {counts}, want {want}")
+        check(roll.shape == (K, B, N, TP, 2) and bool(torch.isfinite(roll).all()),
+              f"route A from the {name} checkpoint: {tuple(roll.shape)}, not finite")
+        rolls[name] = roll
+    check(torch.equal(rolls["orbax"], rolls["npz"]), "route A rollouts from Orbax and .npz differ")
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_orbax_", dir=root))
+    try:
+        # 3. the port's own directory, read back
+        saved = tmp / "port_ckpt"
+        checkpoint.save(str(saved), ck.state, ck.stats, ck.config, ck.step)
+        check(saved.is_dir(), f"save to a suffix-less path wrote no directory at {saved}")
+        same(checkpoint.load(str(saved)), ck, "the port's Orbax directory")
+
+        # 4. cli convert, Orbax -> .npz -> Orbax
+        for src, dst in ((ORBAX_FIXTURE, tmp / "c.npz"), (tmp / "c.npz", tmp / "c_dir")):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                code = torch_cli.main(["convert", "--src", str(src), "--dst", str(dst)])
+            check(code == 0 and out.getvalue() == f"converted {src} -> {dst} (step=1234)\n",
+                  f"cli convert {src} -> {dst}: exit {code}, {out.getvalue()!r}")
+            same(checkpoint.load(str(dst)), ck, f"cli convert to {dst.name}")
+
+        # 5. one flipped byte in the top-level node
+        bad = tmp / "flipped"
+        shutil.copytree(ORBAX_FIXTURE, bad)
+        (node,) = (bad / "d").iterdir()
+        data = bytearray(node.read_bytes())
+        data[len(data) // 2] ^= 0x40
+        node.write_bytes(bytes(data))
+        raised = None
+        try:
+            checkpoint.load(str(bad))
+        except checkpoint.CheckpointError as e:
+            raised = e
+        check(raised is not None and "CRC-32C checksum mismatch" in str(raised.__cause__),
+              f"a flipped node byte: {raised!r}, cause {getattr(raised, '__cause__', None)!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 6. the zstd decoder's output rate on the fixture's chunks
+    store = OcdbtReader(str(ORBAX_FIXTURE))
+    frames = [store.read(k) for k in store.keys() if not k.endswith(b".zarray")]
+    rates, nbytes = [], 0
+    for _ in range(ORBAX_ROUNDS):
+        t0 = time.perf_counter()
+        nbytes = sum(len(zstd.decompress(f)) for f in frames)
+        rates.append(nbytes / (time.perf_counter() - t0) / 1e6)
+    load_s, rate = statistics.median(secs), statistics.median(rates)
+    log(f"orbax: load of the config-4 fixture {load_s:.4f} s (median of {ORBAX_ROUNDS}: "
+        f"{', '.join(f'{x:.4f}' for x in secs)}); zstd {rate:.2f} MB/s of output ({len(frames)} "
+        f"chunks, {nbytes} bytes, median of {ORBAX_ROUNDS}); equal to the .npz twin; route A "
+        f"rollouts equal to the bit, {TO} fused_gat + 1 fused_decode each; save, cli convert "
+        f"both ways and a flipped node byte checked; {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2551,6 +2667,14 @@ def main() -> int:
     importers_phase(torch, dev, card, cfg, plain_cfg, route_a, state, counted,
                     dict.fromkeys(counters, 0))
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # -- 17. the JAX package's Orbax directory -----------------------------------------------
+    t0 = time.perf_counter()
+    orbax_phase(torch, dev, card,
+                lambda m: dataclasses.replace(m, use_pallas=True, use_fused_decoder=True,
+                                              attend_kernel="xla"),
+                xy_obs, mask, counted, dict.fromkeys(counters, 0))
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

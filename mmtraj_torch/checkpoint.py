@@ -16,18 +16,25 @@ own layout, so a file written by either package reads in the other:
 * ``.h5``/``.hdf5``: HDF5 datasets ``params/<a>/<b>`` and ``stats/mean|std``,
   attributes ``config_json`` and ``step``.  ``h5py`` is imported only by these
   two functions: the package imports without it, and ``load`` of an ``.h5``
-  without it raises ``CheckpointError``.
+  without it raises ``CheckpointError``;
+* an Orbax directory, the JAX package's native format (``save_orbax`` /
+  ``load_orbax``): the tree ``{"params": ..., "stats": {"mean", "std"},
+  "step"}`` as orbax's ``PyTreeCheckpointer`` saves it, and the config in
+  ``mmtraj_config.json`` beside it.  ``load_orbax`` reads both of orbax's
+  layouts, zarr arrays in an OCDBT store with zstd chunks (what the JAX
+  package writes) or one directory of plain files a leaf, through
+  ``mmtraj_torch.orbax_io`` and without JAX, orbax or tensorstore;
+  ``save_orbax`` writes the second, which the JAX package's ``load`` reads.
 
-Every write goes to a temporary file that is renamed into place, so a crash
-never leaves half a checkpoint.  The JAX package's native format, an Orbax
-directory, is not read here (Orbax imports JAX): ``load`` of a directory
-raises ``CheckpointError`` naming the JAX package's converter, ``python -m
-mmtraj.cli convert --src <dir> --dst <file>.npz``.
+Every write goes to a temporary file or directory that is renamed into
+place, so a crash never leaves half a checkpoint.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 from typing import Any, Dict, List, NoReturn, Optional
 
 import numpy as np
@@ -35,7 +42,9 @@ import torch
 
 from mmtraj_torch.config import Config, config_from_json
 from mmtraj_torch.data.transforms import NormStats
-from mmtraj_torch.params import Checkpoint, State, config_to_json, load_npz, save_npz
+from mmtraj_torch.orbax_io.tree import read_pytree, write_pytree
+from mmtraj_torch.params import (Checkpoint, State, config_to_json, from_jax, load_npz, save_npz,
+                                 unflatten)
 
 TORCH_SUFFIXES = (".pt", ".pth")
 H5_SUFFIXES = (".h5", ".hdf5")
@@ -123,12 +132,56 @@ def load_h5(path: str) -> Checkpoint:
     return Checkpoint(state, stats, cfg, step)
 
 
+# -- Orbax directory ------------------------------------------------------------------
+
+CONFIG_FILE = "mmtraj_config.json"
+
+
+def save_orbax(path: str, state: State, stats: NormStats, cfg: Config, step: int = 0) -> None:
+    """The JAX package's ``save_orbax`` tree (module docstring) in orbax's
+    layout without OCDBT, written into a temporary directory beside ``path``
+    and renamed into place; an existing ``path`` is replaced, as orbax's
+    ``force=True`` replaces it."""
+    path = os.path.abspath(path)
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    mean, std = _stats_arrays(stats)
+    leaves = {("params", *k.split(".")): np.asarray(_cpu32(v)) for k, v in state.items()}
+    leaves.update({("stats", "mean"): mean, ("stats", "std"): std,
+                   ("step",): np.asarray(int(step), np.int64)})
+    tmp = tempfile.mkdtemp(prefix=os.path.basename(path) + ".tmp-", dir=parent)
+    try:
+        write_pytree(tmp, leaves)
+        with open(os.path.join(tmp, CONFIG_FILE), "w") as f:
+            f.write(config_to_json(cfg))
+        if os.path.lexists(path):
+            old = tempfile.mkdtemp(prefix=os.path.basename(path) + ".old-", dir=parent)
+            os.replace(path, os.path.join(old, "ckpt"))
+            os.replace(tmp, path)
+            shutil.rmtree(old)
+        else:
+            os.replace(tmp, path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_orbax(path: str) -> Checkpoint:
+    """A checkpoint saved by either package's ``save_orbax``."""
+    leaves = read_pytree(path)
+    with open(os.path.join(path, CONFIG_FILE)) as f:
+        cfg = config_from_json(f.read())
+    params = unflatten({".".join(k[1:]): v for k, v in leaves.items() if k[0] == "params"})
+    stats = NormStats(leaves[("stats", "mean")], leaves[("stats", "std")])
+    return Checkpoint(from_jax(params), stats, cfg, int(leaves[("step",)]))
+
+
 # -- the front door -------------------------------------------------------------------
 
 def save(path: str, state: State, stats: NormStats, cfg: Config, step: int = 0,
          opt_leaves: Optional[List[Any]] = None) -> None:
-    """Write a checkpoint; the suffix picks the format: ``.npz``, ``.pt``/``.pth``
-    or ``.h5``/``.hdf5``.  Only ``.npz`` carries the optimizer's leaves:
+    """Write a checkpoint; the suffix picks the format: ``.npz``, ``.pt``/``.pth``,
+    ``.h5``/``.hdf5``, and an Orbax directory for any other path, as the JAX
+    package's ``save`` picks it.  Only ``.npz`` carries the optimizer's leaves:
     ``opt_leaves`` with another format raises rather than write a checkpoint
     that would resume with a fresh optimizer."""
     if path.endswith(".npz"):
@@ -144,19 +197,20 @@ def save(path: str, state: State, stats: NormStats, cfg: Config, step: int = 0,
     elif path.endswith(H5_SUFFIXES):
         save_h5(path, state, stats, cfg, step)
     else:
-        raise ValueError(
-            f"unknown checkpoint suffix in {path!r}: the port writes .npz, .pt/.pth or "
-            ".h5/.hdf5 (an Orbax directory is the JAX package's: python -m mmtraj.cli convert)")
+        save_orbax(path, state, stats, cfg, step)
 
 
 def load(path: str) -> Checkpoint:
     """Read a checkpoint of either package, the format chosen explicitly:
 
     * suffix ``.pt``/``.pth`` -> torch, ``.h5``/``.hdf5`` -> HDF5, ``.npz`` (or a
-      bare path whose ``.npz`` exists while the path itself does not) -> npz;
+      bare path whose ``.npz`` exists while the path itself is not a file,
+      even where it is a directory) -> npz;
     * a file without a known suffix by its first bytes: ``PK`` (a zip) -> npz,
       ``\\x89HDF`` -> HDF5, anything else a ``CheckpointError``;
-    * a directory (an Orbax checkpoint) or a missing path -> ``CheckpointError``.
+    * anything else (a directory, or a path that is not a file) -> Orbax; a
+      path that does not exist raises ``CheckpointError`` with the
+      ``FileNotFoundError`` chained.
 
     A file that fails to parse raises ``CheckpointError`` naming it and the
     format, the parse error chained; nothing falls back to another format."""
@@ -194,9 +248,9 @@ def load(path: str) -> Checkpoint:
         raise CheckpointError(
             f"checkpoint file {path!r} has unrecognized magic bytes {magic!r}; expected .npz "
             "(zip), .h5 (HDF) or .pt")
-    if os.path.isdir(path):
-        raise CheckpointError(
-            f"checkpoint {path!r} is a directory, the JAX package's Orbax format, which the port "
-            f"does not read; convert it with the JAX package first: python -m mmtraj.cli convert "
-            f"--src {path} --dst <file>.npz")
-    _fail(path, "a checkpoint file", FileNotFoundError(f"no such file or directory: {path!r}"))
+    if not os.path.lexists(path):
+        _fail(path, "a checkpoint file", FileNotFoundError(f"no such file or directory: {path!r}"))
+    try:
+        return load_orbax(path)
+    except Exception as e:
+        _fail(path, "Orbax directory", e)

@@ -12,8 +12,8 @@ fold's seeds, and trees, pooled into one deep ensemble), ``baseline``
 (closed-form constant- or zero-velocity ADE/FDE, no model),
 ``generate-data`` (the synthetic five-scene dataset), ``autotune-eval``
 (the fastest eval batch on this card), ``convert`` (a checkpoint between
-the .npz, .pt and .h5 formats, and to and from Keras's legacy
-``save_weights`` layout), ``profile-stats`` (the device time of a trace
+the .npz, .pt and .h5 formats and an Orbax directory, and to and from
+Keras's legacy ``save_weights`` layout), ``profile-stats`` (the device time of a trace
 that ``train --profile`` wrote), ``export`` (a frozen K-sample predictor
 as a ``torch.export`` .pt2 artifact), ``serve`` (JSON-lines requests on
 stdin answered from artifacts, protocol in ``mmtraj_torch/serve.py``) and
@@ -23,8 +23,7 @@ PNG; matplotlib), ``import-obsmat`` and ``import-vsp`` (raw BIWI obsmat and
 UCY .vsp annotations to the canonical ``frame ped x y`` text) and ``cache``
 (the size of the kernel build directory, ``--trim-gb``, ``--clear``).  The
 commands that read a checkpoint read any format ``mmtraj_torch.checkpoint.load``
-reads; an Orbax directory is converted with the JAX package's ``python -m
-mmtraj.cli convert`` first.
+reads, the JAX package's Orbax directories among them.
 
 Usage:
   python -m mmtraj_torch.cli generate-data --data-dir data/synthetic
@@ -42,6 +41,8 @@ Usage:
   python -m mmtraj_torch.cli autotune-eval --ckpt runs/x/checkpoint.npz
   python -m mmtraj_torch.cli eval --ckpt ... --data-dir ... --device cpu
   python -m mmtraj_torch.cli convert --src runs/x/checkpoint.npz --dst runs/x/model.pt
+  python -m mmtraj_torch.cli convert --src runs/jax/orbax_ckpt --dst runs/x/checkpoint.npz
+  python -m mmtraj_torch.cli eval --ckpt runs/jax/orbax_ckpt --data-dir data/synthetic3000
   python -m mmtraj_torch.cli convert --keras --src keras.h5 --like x.npz --dst imported.npz
   python -m mmtraj_torch.cli export --ckpt runs/x/checkpoint.npz --out runs/x/predictor.pt2
   python -m mmtraj_torch.cli serve --artifact runs/x/predictor.pt2 --aggregate 8 < requests.jsonl
@@ -162,7 +163,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_train(sub)
     ep = sub.add_parser("eval", help="evaluate a checkpoint (best-of-K ADE/FDE)")
     ep.add_argument("--ckpt", required=True,
-                    help="a .npz, .pt or .h5 checkpoint (either package's)")
+                    help="a .npz, .pt or .h5 checkpoint or an Orbax directory (either "
+                         "package's)")
     _add_common(ep)
     ep.add_argument("--batch-size", type=int, default=None,
                     help="eval batch; default: evaluate.vmem_friendly_batch, the JAX "
@@ -241,9 +243,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "vmem_friendly_batch)")
     at.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
-    cp = sub.add_parser("convert", help="convert a checkpoint between formats (.npz / .pt / .h5)")
+    cp = sub.add_parser("convert",
+                        help="convert a checkpoint between formats (orbax dir / .npz / .pt / .h5)")
     cp.add_argument("--src", required=True, help="source checkpoint path")
-    cp.add_argument("--dst", required=True, help="destination path; the suffix picks the format")
+    cp.add_argument("--dst", required=True,
+                    help="destination path; the suffix picks the format (none: an Orbax "
+                         "directory)")
     cp.add_argument("--keras", action="store_true",
                     help="treat .h5 files as Keras's legacy save_weights layout (reference "
                          "layer names, mmtraj_torch/interop.py) instead of the flat h5; weights "

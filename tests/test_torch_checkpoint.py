@@ -4,8 +4,9 @@ package's ``mmtraj/checkpoint.py``, on the CPU.
 Every format round-trips the state, stats, config and step to the bit, and a
 file written by either package reads in the other to the bit.  Every failure
 ``tests/test_checkpoint.py`` pins for the JAX package raises the port's
-``CheckpointError`` naming the file, the parse error chained; an Orbax
-directory, which the port does not read, names the JAX package's converter.
+``CheckpointError`` naming the file, the parse error chained.  A path with
+no known suffix is an Orbax directory, as in the JAX package
+(``tests/test_torch_orbax.py`` holds that format against JAX).
 """
 
 import os
@@ -124,8 +125,16 @@ def test_save_opt_leaves_requires_npz(payload, tmp_path):
 
 
 def test_save_to_an_unknown_suffix_raises(payload, tmp_path):
-    with pytest.raises(ValueError, match=r"\.npz, \.pt"):
-        ck.save(str(tmp_path / "orbax_dir"), payload["state"], payload["stats"], payload["cfg"])
+    """An unknown suffix names an Orbax directory, as in the JAX package's
+    ``save``: it round-trips to the bit.  What still raises is the optimizer
+    state with it, which leaves the directory as it was."""
+    path = str(tmp_path / "orbax_dir")
+    ck.save(path, payload["state"], payload["stats"], payload["cfg"], step=6)
+    assert os.path.isdir(path) and sorted(os.listdir(tmp_path)) == ["orbax_dir"]
+    with pytest.raises(ValueError, match="opt_leaves"):
+        ck.save(path, payload["state"], payload["stats"], payload["cfg"], 7,
+                opt_leaves=[np.zeros(3, np.float32)])
+    _assert_same(ck.load(path), payload["state"], payload["stats"], payload["cfg"], 6)
 
 
 @pytest.mark.parametrize("suffix", [".npz", ".pt", ".h5"])
@@ -184,11 +193,15 @@ def test_missing_path_raises_checkpoint_error(tmp_path):
 
 
 def test_an_orbax_directory_names_the_converter(tmp_path):
+    """A directory is read as Orbax (it once raised, naming the JAX
+    package's converter); one without orbax's ``_METADATA`` raises
+    ``CheckpointError`` naming it and the format, the cause chained."""
     path = tmp_path / "orbax_ckpt"
     path.mkdir()
     (path / "mmtraj_config.json").write_text("{}")
-    with pytest.raises(ck.CheckpointError, match="python -m mmtraj.cli convert --src"):
+    with pytest.raises(ck.CheckpointError, match="orbax_ckpt.*as Orbax directory") as ei:
         ck.load(str(path))
+    assert isinstance(ei.value.__cause__, FileNotFoundError)
 
 
 def test_the_module_imports_without_h5py(payload, tmp_path):

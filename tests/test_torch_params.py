@@ -102,6 +102,9 @@ def test_port_imports_neither_jax_nor_mmtraj():
             "mmtraj_torch/cli.py", "mmtraj_torch/entry.py", "mmtraj_torch/baselines.py",
             "mmtraj_torch/data/synthetic.py", "mmtraj_torch/utils/profiling.py",
             "mmtraj_torch/utils/logging.py", "mmtraj_torch/benchmarks/occupancy_bench.py",
+            "mmtraj_torch/orbax_io/__init__.py", "mmtraj_torch/orbax_io/zstd.py",
+            "mmtraj_torch/orbax_io/crc32c.py", "mmtraj_torch/orbax_io/ocdbt.py",
+            "mmtraj_torch/orbax_io/zarr.py", "mmtraj_torch/orbax_io/tree.py",
             "chip_smoke.py"} <= scanned
     bad = []
     for path in files:
@@ -114,6 +117,7 @@ def test_port_imports_neither_jax_nor_mmtraj():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "mmtraj"):
+                if top in ("jax", "jaxlib", "mmtraj", "orbax", "tensorstore", "zstandard"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno}: {name}")
-    assert not bad, "the port must not import JAX or the JAX package:\n" + "\n".join(bad)
+    assert not bad, ("the port must not import JAX, the JAX package, orbax, tensorstore or "
+                     "zstandard:\n" + "\n".join(bad))
