@@ -172,6 +172,24 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    with one byte of its top-level node flipped raising ``CheckpointError``;
    the load's seconds (median of ``ORBAX_ROUNDS``) and the zstd decoder's
    output rate on the fixture's chunks.
+18. (run before 7's line) config 3, the model of RESULTS.md's quality
+   recipe (one GAT head of 64, N_max = 32, the recipe's 2 m radius), at full
+   width: each kernel at config 3's shapes against its plain version
+   (``attend`` and ``fused_decode`` at B·K = 1,280 rollout graphs,
+   ``fused_gat`` at the training, variety-rollout and evaluate batches,
+   ``fused_gat_lanes`` at 5 lanes of the training and variety batches),
+   with device times, bounds and occupancy; route A and the route-B pin
+   against plain ``rollout_k`` at config 3's evaluate batch (B = 64, K =
+   20) on one stream, with exact launches; ``C3_TRAIN_STEPS`` recipe steps
+   (variety n = 8, rotate and flip, dropout, AdamW with weight decay, the
+   cosine schedule, the EMA) under ``use_pallas`` against plain, with exact
+   launches; a graphed population of 5 lanes in chunks of ``C3_POP_M``,
+   its launches exact and each lane's step 1 against its seed's sequential
+   step, and the ms of a replayed population step; and
+   ``tools/torch_yardstick.py`` end to end at ``C3_SMOKE_STEPS`` steps on
+   ``C3_SMOKE_FRAMES`` frames a scene (a smoke of the yardstick, not the
+   yardstick: its rows are those of a model trained for 200 steps), with
+   route A and plain agreeing within ``EVAL_ADE_TOL``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -260,6 +278,10 @@ IMPORT_SCENE, IMPORT_EVAL_B, VSP_SCALE, PARSE_ROUNDS, VIZ_WINDOWS = "hotel", 64,
 ORBAX_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_orbax_c4"
 ORBAX_ROUNDS = 5  # loads and zstd passes timed; the median is reported
 IMPORT_ADE_TOL = 1e-6  # meters: the imported scene against the original file
+# Phase 18: config 3's evaluate batch (vmem_friendly_batch(20, 32)); recipe steps held
+# use_pallas against plain; the population's chunk; the yardstick smoke's steps and frames.
+C3_B, C3_TRAIN_STEPS, C3_POP_M = 64, 3, 10
+C3_SMOKE_STEPS, C3_SMOKE_FRAMES = 200, 120
 # Phase 12 (bf16): a kernel route's step against the plain route's from the
 # same state, of the new hidden state's largest |value|; best-of-K ADE/FDE of
 # two bf16 routes, meters.
@@ -2254,6 +2276,263 @@ def orbax_phase(torch, dev, card, route_a_of, xy_obs, mask, counted, zero) -> No
         f"both ways and a flipped node byte checked; {card}")
 
 
+def config3_phase(torch, dev, card, counted, zero) -> None:
+    """Phase 18: config 3 at full width, with the recipe's radius, dropout and
+    training flags (see the module's docstring)."""
+    from mmtraj_torch import population as popm
+    from mmtraj_torch import train as tr
+    from mmtraj_torch.config import config3
+    from mmtraj_torch.data.transforms import NormStats
+    from mmtraj_torch.graph.adjacency import proximity_adjacency
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.ops import _build, fused_attend, fused_decoder, fused_gat
+    from mmtraj_torch.params import init_params
+
+    base = config3()
+    # The recipe (RESULTS.md:14-20, 55-72), its warm-up cut to one step so that
+    # the steps held below move at about the peak rate.
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, adjacency_radius=2.0, dropout=0.1),
+        train=dataclasses.replace(base.train, loss="variety", variety_n=VARIETY_N,
+                                  augment_rotate=True, augment_flip=True, weight_decay=1e-4,
+                                  ema_decay=0.995, lr_schedule="cosine", steps=32000,
+                                  warmup_steps=1))
+    t = cfg.train
+    n, H, TB, R = cfg.data.n_max, cfg.model.num_heads, t.batch_size, cfg.model.adjacency_radius
+    plain_cfg = dataclasses.replace(cfg.model, use_pallas=False, attend_kernel="xla",
+                                    use_fused_decoder=False)
+    pallas_cfg = dataclasses.replace(plain_cfg, use_pallas=True)
+    plain = Forecaster(plain_cfg, TO, TP, device=dev, generator=torch.Generator().manual_seed(3))
+    p = plain.params()
+    stats = NormStats(torch.zeros(2, device=dev), torch.full((2,), 0.4, device=dev))
+    rng = np.random.default_rng(18)
+    # zara1-like windows: up to 32 agents, about 40% of them present, within a
+    # few meters of each other, so a 2 m radius keeps some edges and drops others.
+    steps = rng.normal(size=(C3_B, n, TO + TP, 2)).astype(np.float32) * 0.4
+    xy = np.cumsum(steps, axis=2) + rng.normal(size=(C3_B, n, 1, 2)).astype(np.float32) * 2
+    xy = torch.tensor(xy, dtype=torch.float32, device=dev)
+    mask = torch.tensor(rng.random((C3_B, n)) < 0.4, device=dev)
+    mask[:, 0] = True
+    xy_obs = xy[:, :, :TO].contiguous()
+    t_phase = time.perf_counter()
+
+    def self_loops(adj, m):
+        eye = torch.eye(adj.shape[-1], dtype=torch.bool, device=dev)
+        return (adj | (eye & m[:, None, :] & m[:, :, None])).float().contiguous()
+
+    def tile(a):
+        return a.repeat((K,) + (1,) * (a.ndim - 1)).contiguous()
+
+    # a. each kernel at config 3's shapes against its plain version.
+    carry = plain.encode(xy_obs, mask, stats)
+    hk, mk, xyk = tile(carry.h), tile(mask), tile(xy_obs[:, :, -1])
+    att_k = self_loops(proximity_adjacency(xyk, mk, R), mk)
+    att_e = self_loops(proximity_adjacency(xy_obs[:, :, -1], mask, R), mask)
+
+    def report(name, shape, err, fn_k, fn_p, cost, occ, plain_reps=11):
+        ms, plain_ms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=plain_reps,
+                                                     inner=1 if plain_reps < 11 else 5)
+        bound_ms, bound_by = bound(*cost[:2])
+        log(f"config3 {name} {shape} H={H}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), tc bound "
+            f"{tc_bound(*cost):.6f} ms; {json.dumps(occ)}; {card}")
+
+    def held(name, out_k, out_p):
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
+              f"config3 {name}: max abs err {err}")
+        return err
+
+    g = p["dec"]["gat"]
+    v = (hk @ g["wv"]).contiguous()
+    s_src = (v @ fused_gat._block_diag(g["a_src"])).contiguous()
+    s_dst = (v @ fused_gat._block_diag(g["a_dst"])).contiguous()
+    a_args = (v, s_src, s_dst, att_k, H)
+    err = held("attend", fused_attend.attend(*a_args), fused_attend.attend_math(*a_args))
+    report("attend", tuple(v.shape), err, lambda: fused_attend.attend(*a_args),
+           lambda: fused_attend.attend_math(*a_args), attend_cost(C3_B * K, n, v.shape[-1], H),
+           _build.occupancy("attend", n, H, v.shape[-1]))
+
+    ge = p["enc"]["gat"]
+    enc_w = tuple(ge[k] for k in ("wv", "a_src", "a_dst", "wo", "bo"))
+    dec_w = tuple(g[k] for k in ("wv", "a_src", "a_dst", "wo", "bo"))
+    for label, args in (("training batch", (carry.h[:TB].contiguous(), att_e[:TB], *enc_w, H)),
+                        ("variety rollout", (hk[:VARIETY_N * TB], att_k[:VARIETY_N * TB],
+                                             *dec_w, H)),
+                        ("evaluate batch", (carry.h.contiguous(), att_e, *enc_w, H))):
+        err = held(f"fused_gat ({label})", fused_gat.fused_gat(*args), fused_gat.gat_math(*args))
+        b_, d_ = args[0].shape[0], args[0].shape[-1]
+        hd_, dout = args[2].shape[1], args[5].shape[1]
+        report(f"fused_gat ({label})", (b_, n, d_), err, lambda: fused_gat.fused_gat(*args),
+               lambda: fused_gat.gat_math(*args), gat_cost(b_, n, d_, hd_, H, dout),
+               _build.occupancy("gat", n, d_, H, hd_, dout))
+
+    S = len(POP_SEEDS)
+    states = [init_params(cfg.model, torch.Generator().manual_seed(s)) for s in POP_SEEDS]
+    lane_w = [torch.stack([st[f"enc.gat.{k}"] for st in states]).to(dev)
+              for k in ("wv", "a_src", "a_dst", "wo", "bo")]
+    for b_ in (TB, VARIETY_N * TB):
+        h_l = hk[:S * b_].reshape(S, b_, n, -1)
+        args = (h_l, att_k[:S * b_].reshape(S, b_, n, n), *lane_w, H)
+
+        def lanes_plain(args=args):
+            return torch.stack([fused_gat.gat_math(*(x[i] for x in args[:-1]), H)
+                                for i in range(S)])
+
+        err = held(f"fused_gat_lanes ({S}, {b_})", fused_gat.fused_gat_lanes(*args),
+                   lanes_plain())
+        report("fused_gat_lanes", (S, b_, n, 64), err,
+               lambda args=args: fused_gat.fused_gat_lanes(*args), lanes_plain,
+               lanes_cost(S, b_, n, 64, lane_w[0].shape[-1], H, lane_w[3].shape[-1]),
+               _build.occupancy("gat", n, 64, H, lane_w[0].shape[-1], lane_w[3].shape[-1]))
+
+    M = cfg.model.num_mixtures
+    hw, hb = fused_decoder.permute_head(p["head"]["w"], p["head"]["b"], M)
+    dec_kw = dict(num_heads=H, num_mixtures=M, radius=R, sigma_min=cfg.model.sigma_min,
+                  rho_max=cfg.model.rho_max, stats_mean=stats.mean, stats_std=stats.std)
+    gumbel, normal = plain._rollout_stream(C3_B * K, n, torch.Generator(device=dev).manual_seed(2))
+    d_args = (hk, xyk, mk, gumbel, normal, p["dec"], hw, hb)
+    out_k = fused_decoder.fused_decode(*d_args, **dec_kw)
+    out_p = fused_decoder.reference_decode(*d_args, **dec_kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), "config3 fused_decode: output is not finite")
+    per_graph = torch.where(mk[:, None, :, None], (out_k - out_p).abs(), 0.0).flatten(1).amax(1)
+    diverged = int((per_graph > ROLLOUT_TOL).sum())
+    check(diverged <= MAX_DIVERGED * C3_B * K,
+          f"config3 fused_decode: {diverged} of {C3_B * K} rollouts past {ROLLOUT_TOL} m")
+    n_weights = sum(x.numel() for x in (*(y for d in p["dec"].values() if isinstance(d, dict)
+                                          for y in d.values()), hw, hb))
+    hid, emb = cfg.model.hidden_dim, cfg.model.embed_dim
+    log(f"config3 fused_decode: {diverged} of {C3_B * K} rollouts past {ROLLOUT_TOL} m")
+    report("fused_decode", (C3_B * K, TP, n), per_graph[per_graph <= ROLLOUT_TOL].max().item(),
+           lambda: fused_decoder.fused_decode(*d_args, **dec_kw),
+           lambda: fused_decoder.reference_decode(*d_args, **dec_kw),
+           decode_cost(C3_B * K, TP, n, hid, emb, g["wv"].shape[1], H, M, n_weights),
+           _build.occupancy("decoder", n, hid, emb, H, g["wv"].shape[1], M), plain_reps=3)
+    log(f"config3 kernels: {time.perf_counter() - t_phase:.1f} s")
+
+    # b. route A and the route-B pin against plain rollout_k at B = 64, K = 20.
+    stream = plain._rollout_stream(K * C3_B, n, torch.Generator(device=dev).manual_seed(4))
+    ref = plain.rollout_k(xy_obs, mask, stats, K, stream=stream)
+    for name, mc, expect in (
+            ("A", dataclasses.replace(plain_cfg, use_pallas=True, use_fused_decoder=True),
+             {"fused_gat": TO, "fused_decode": 1}),
+            ("B", dataclasses.replace(plain_cfg, attend_kernel="pallas"), {"attend": TO + TP})):
+        model = Forecaster(mc, TO, TP, device=dev, state=plain.state_dict())
+        roll, counts = counted(lambda: model.rollout_k(xy_obs, mask, stats, K, stream=stream))
+        check(counts == {**zero, **expect}, f"config3 route {name}: launches {counts}")
+        check(roll.shape == (K, C3_B, n, TP, 2) and bool(torch.isfinite(roll).all()),
+              f"config3 route {name}: shape {tuple(roll.shape)} or not finite")
+        per = torch.where(mask[None, :, :, None, None], (roll - ref).abs(), 0.0).flatten(2).amax(2)
+        n_bad = int((per > ROLLOUT_TOL).sum())
+        check(n_bad <= MAX_DIVERGED * K * C3_B,
+              f"config3 route {name}: {n_bad} of {K * C3_B} rollouts past {ROLLOUT_TOL} m")
+        log(f"config3 route {name} (B={C3_B}, N={n}, K={K}, radius {R}): launches {counts}; "
+            f"max abs err vs plain {per[per <= ROLLOUT_TOL].max().item():.3e} m, {n_bad} of "
+            f"{K * C3_B} rollouts past {ROLLOUT_TOL} m")
+
+    # c. recipe steps, use_pallas against plain, from one state and the same draws.
+    state0 = states[0]
+    xb, mb = xy[:TB], mask[:TB]
+    per_step = {**zero, "fused_gat": 2 * (TO + TP)}  # 8 + 12 forward, again under remat
+
+    def recipe_run(mc, expect):
+        model = Forecaster(mc, TO, TP, device=dev, state=state0)
+        ema = Forecaster(mc, TO, TP, device=dev, state=state0)
+        step = tr.make_train_step(model, tr.make_optimizer(cfg, model), stats, ema, t.ema_decay,
+                                  t.augment_rotate, t.augment_flip, 0, t.loss, t.variety_n)
+        losses = []
+        for s_ in range(C3_TRAIN_STEPS):
+            loss, counts = counted(lambda: step(xb, mb, s_))
+            check(counts == expect, f"config3 recipe step {s_}: launches {counts}, want {expect}")
+            losses.append(float(loss))
+        flat = [torch.cat([q.detach().flatten() for q in m_.parameters()]) for m_ in (model, ema)]
+        return losses, flat
+
+    with torch.enable_grad():
+        lp, fp = recipe_run(plain_cfg, zero)
+        lk, fk = recipe_run(pallas_cfg, per_step)
+    rel = [abs(a - c) / abs(c) for a, c in zip(lk, lp)]
+    check(max(rel) <= TRAIN_LOSS_RTOL, f"config3 recipe: losses {lk} vs {lp}")
+    for what, a, c in (("parameters", fk[0], fp[0]), ("EMA", fk[1], fp[1])):
+        dp = (a - c).abs()
+        share = (dp > PARAM_TOL).float().mean().item()
+        check(dp.max().item() <= 2 * t.lr * C3_TRAIN_STEPS and share <= 0.01,
+              f"config3 recipe {what}: max |d| {dp.max().item()}, share past {PARAM_TOL} {share}")
+    log(f"config3 recipe (B={TB}, N={n}, variety n={t.variety_n}, {C3_TRAIN_STEPS} steps): "
+        f"use_pallas losses {[f'{x:.7f}' for x in lk]}, plain {[f'{x:.7f}' for x in lp]} "
+        f"(largest rel {max(rel):.2e}); parameters max |d| {(fk[0] - fp[0]).abs().max().item():.3e}"
+        f"; fused_gat {per_step['fused_gat']} launches a step")
+
+    # d. a graphed population of 5 lanes against each seed's sequential step.
+    pcfg = cfg.replace(model=pallas_cfg)
+    idx = np.stack([np.stack([np.random.default_rng([s, k]).permutation(C3_B)[:TB]
+                              for s in POP_SEEDS]) for k in range(2 * C3_POP_M)])
+    per_pop = {**zero, "fused_gat": TO + TP, "fused_gat_lanes": TO + TP}
+    with torch.enable_grad():
+        params = popm.stack_lanes(states, dev)
+        ema = {k_: x.detach().clone() for k_, x in params.items()}
+        popt = tr.Optimizer(params, pcfg, lanes=True)
+        pop = popm.make_population_step(popm.lane_model(pcfg, dev), params, popt, stats,
+                                        POP_SEEDS, ema, t.ema_decay, t.augment_rotate,
+                                        t.augment_flip, t.loss, t.variety_n)
+        first, counts = counted(lambda: pop(xy, mask, idx[:C3_POP_M], range(C3_POP_M)))
+        want = {k_: (tr.CAPTURE_WARMUP + 1) * c for k_, c in per_pop.items()}
+        check(counts == want and pop.capture_launches == per_pop,
+              f"config3 population: launches {counts} (want {want}), capture "
+              f"{pop.capture_launches}")
+        t0 = time.perf_counter()
+        _, counts = counted(lambda: pop(xy, mask, idx[C3_POP_M:], range(C3_POP_M, 2 * C3_POP_M)))
+        pop_ms = 1e3 * (time.perf_counter() - t0) / C3_POP_M
+        check(counts == zero, f"config3 population replays: launches {counts}")
+        first = first.cpu().numpy()
+        rels = []
+        for i, seed in enumerate(POP_SEEDS):
+            m_ = Forecaster(pcfg.model, TO, TP, device=dev, state=states[i])
+            e_ = Forecaster(pcfg.model, TO, TP, device=dev, state=states[i])
+            step = tr.make_train_step(m_, tr.make_optimizer(pcfg, m_), stats, e_, t.ema_decay,
+                                      t.augment_rotate, t.augment_flip, seed, t.loss, t.variety_n)
+            sel = torch.from_numpy(idx[0, i]).to(dev)
+            seq = float(step(xy[sel], mask[sel], 0))
+            rels.append(abs(first[0, i] - seq) / abs(seq))
+        check(max(rels) <= TRAIN_LOSS_RTOL and np.isfinite(first).all(),
+              f"config3 population step 1 vs sequential steps: rel {rels}")
+    log(f"config3 population ({S} lanes x B={TB}, variety n={t.variety_n}, graphed M={C3_POP_M})"
+        f": step-1 loss rel to each seed's sequential step {max(rels):.2e} (tol "
+        f"{TRAIN_LOSS_RTOL}); {per_pop['fused_gat_lanes']} fused_gat_lanes a step; a replayed "
+        f"step {pop_ms:.2f} ms; {card}")
+
+    # e. the yardstick, shortened to a smoke.
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tools"))
+    import torch_yardstick
+
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_yardstick_", dir=root))
+    t0 = time.perf_counter()
+    try:
+        with torch.enable_grad():
+            res, counts = counted(lambda: torch_yardstick.run(
+                str(tmp), steps=C3_SMOKE_STEPS, n_frames=C3_SMOKE_FRAMES, device="cuda",
+                log=log))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = res["rows"]
+    finite = all(np.isfinite(rows[r][p_][m][0]) for r in rows for p_ in ("iid", "os6", "ens5")
+                 for m in ("ade", "fde"))
+    check(finite and res["routes_agree"] and max(res["route_gap_m"].values()) <= EVAL_ADE_TOL,
+          f"config3 yardstick smoke: finite {finite}, route gaps {res['route_gap_m']}")
+    check(all(counts[k_] > 0 for k_ in ("fused_gat", "fused_gat_lanes", "fused_decode")),
+          f"config3 yardstick smoke: launches {counts}")
+    log(f"config3 yardstick smoke ({C3_SMOKE_STEPS} steps, {C3_SMOKE_FRAMES} frames a scene, "
+        f"{len(res['seeds'])} seeds; not the yardstick): training {res['train_seconds']:.1f} s, "
+        f"{res['step_ms']} ms a population step; route A i.i.d. "
+        f"{rows['A']['iid']['ade'][0]:.4f}/{rows['A']['iid']['fde'][0]:.4f} m, plain "
+        f"{rows['plain']['iid']['ade'][0]:.4f}/{rows['plain']['iid']['fde'][0]:.4f} m, largest "
+        f"route gap {max(res['route_gap_m'].values()):.2e} m; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2675,6 +2954,11 @@ def main() -> int:
                                               attend_kernel="xla"),
                 xy_obs, mask, counted, dict.fromkeys(counters, 0))
     log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # -- 18. config 3, the quality recipe's model ----------------------------------------------
+    t0 = time.perf_counter()
+    config3_phase(torch, dev, card, counted, dict.fromkeys(counters, 0))
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

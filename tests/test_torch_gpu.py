@@ -47,7 +47,7 @@ _t, _attend_tile = kernel_inputs.tensor, kernel_inputs.attend_tile
 
 
 @pytest.mark.parametrize("n, heads, hd", [(8, 2, 16), (64, 4, 64), (100, 4, 64), (256, 8, 64),
-                                           (40, 4, 48), (24, 1, 72)])
+                                           (40, 4, 48), (24, 1, 72), (32, 1, 64)])
 def test_attend_kernel_matches_plain(cuda, n, heads, hd):
     rng = np.random.default_rng(n)
     v, s_src, s_dst = _t(rng, 6, n, hd), _t(rng, 6, n, heads, scale=2), _t(rng, 6, n, heads, scale=2)
@@ -113,6 +113,8 @@ def test_packed_attend_refuses_an_odd_group_on_the_card(cuda):
     (200, 64, 4, 64, 5, 0),  # two slabs a block, a cluster of 7
     (64, 64, 4, 64, 1, 0),   # B = 1
     (100, 32, 4, 48, 3, 9),  # an all-masked row and 9 padded agents
+    (32, 64, 1, 64, 32, 0),  # config 3: one head of 64, a cluster of 2, its training batch
+    (32, 64, 1, 64, 256, 0),  # config 3's variety rollout: 8 x 32 graphs
 ])
 def test_gat_kernel_matches_plain(cuda, n, d, heads, hd, b, padded):
     """A graph's 16-row slabs are the blocks of one thread block cluster.
@@ -138,13 +140,15 @@ def test_gat_kernel_matches_plain(cuda, n, d, heads, hd, b, padded):
         assert torch.equal(got[rows], args[6].expand_as(got[rows]))
 
 
-@pytest.mark.parametrize("s, b, n", [(5, 16, 64), (3, 2, 100), (2, 1, 8)])
-def test_gat_lanes_kernel_matches_plain(cuda, s, b, n):
+@pytest.mark.parametrize("s, b, n, heads", [(5, 16, 64, 4), (3, 2, 100, 4), (2, 1, 8, 4),
+                                             (5, 32, 32, 1)])
+def test_gat_lanes_kernel_matches_plain(cuda, s, b, n, heads):
     """S lanes with their own weights in one launch of the GAT kernel,
     against ``gat_math`` lane by lane; under ``torch.func.vmap``
-    ``fused_gat`` reaches it once for all lanes."""
+    ``fused_gat`` reaches it once for all lanes.  (5, 32, 32) with one head
+    is config 3's population of 5 seeds."""
     rng = np.random.default_rng(s * n)
-    d, heads, hd, dout = 64, 4, 64, 64
+    d, hd, dout = 64, 64, 64
     h = torch.stack([_t(rng, b, n, d) for _ in range(s)])
     att = torch.stack([_attend_tile(rng, b, n, cuda) for _ in range(s)])
     ws = [torch.stack([_t(rng, *shape, scale=0.3) for _ in range(s)]) for shape in (
@@ -161,13 +165,14 @@ def test_gat_lanes_kernel_matches_plain(cuda, s, b, n):
     assert torch.equal(vmapped, got)
 
 
-@pytest.mark.parametrize("s, b, n", [(5, 16, 64), (3, 2, 100), (2, 1, 8)])
-def test_gat_lanes_kernel_lane_equals_a_single_launch(cuda, s, b, n):
+@pytest.mark.parametrize("s, b, n, heads", [(5, 16, 64, 4), (3, 2, 100, 4), (2, 1, 8, 4),
+                                             (5, 32, 32, 1)])
+def test_gat_lanes_kernel_lane_equals_a_single_launch(cuda, s, b, n, heads):
     """Lane i of ``fused_gat_lanes`` runs the code of a single ``fused_gat``
     launch on lane i's graphs and weights (``gat.cu``'s ``Dims::lane``
     offsets only the weight pointers), so it equals that launch to the bit."""
     rng = np.random.default_rng(7 * s + n)
-    d, heads, hd, dout = 64, 4, 64, 64
+    d, hd, dout = 64, 64, 64
     h = torch.stack([_t(rng, b, n, d) for _ in range(s)])
     att = torch.stack([_attend_tile(rng, b, n, cuda) for _ in range(s)])
     ws = [torch.stack([_t(rng, *shape, scale=0.3) for _ in range(s)]) for shape in (
@@ -239,11 +244,13 @@ def test_decoder_kernel_matches_plain(cuda, n):
     _check_decode((h0, xy0, mask, gumbel, normal, p["dec"], hw, hb), kw)
 
 
-@pytest.mark.parametrize("n, hidden, embed, hd, m", kernel_inputs.DECODER_CASES)
-def test_decoder_kernel_at_tile_edges(cuda, n, hidden, embed, hd, m):
-    """Config-4 widths at N = 64 and 128, and widths off the 8-column tiles,
-    with glorot-normal weights as the model draws them."""
-    _check_decode(*kernel_inputs.decoder_case(fused_decoder, n, hidden, embed, hd, m, device=cuda))
+@pytest.mark.parametrize("n, hidden, embed, hd, m, heads", kernel_inputs.DECODER_CASES)
+def test_decoder_kernel_at_tile_edges(cuda, n, hidden, embed, hd, m, heads):
+    """Config-4 widths at N = 64 and 128, widths off the 8-column tiles, and
+    config 3's one head of 64 at N = 32, with glorot-normal weights as the
+    model draws them."""
+    _check_decode(*kernel_inputs.decoder_case(fused_decoder, n, hidden, embed, hd, m, heads,
+                                              device=cuda))
 
 
 @pytest.mark.parametrize("flags, counts", [
@@ -268,6 +275,36 @@ def test_routes_launch_their_kernels_and_match_the_plain_route(cuda, flags, coun
     want = plain.rollout_k(xy, mask, stats, 4, generator=torch.Generator(device=cuda).manual_seed(1))
     err = torch.where(mask[None, :, :, None, None], (got - want).abs(), 0.0).flatten(2).amax(2)
     assert int((err > 1e-3).sum()) <= 0.01 * err.numel() + 1, err
+
+
+def test_config3_route_a_matches_the_plain_route(cuda):
+    """Config 3 (one head of 64, N_max = 32) at the recipe's 2 m radius:
+    route A's ``rollout_k`` at config 3's evaluate batch of 64 windows and
+    K = 20 (1,280 rollout graphs in one ``fused_decode``) launches 8
+    ``fused_gat`` and 1 ``fused_decode`` and stays within 1e-3 m of the
+    plain route on one stream (at most 1% of the rollouts further off)."""
+    from mmtraj_torch.config import config3
+
+    mc = dataclasses.replace(config3().model, adjacency_radius=2.0)
+    plain = Forecaster(mc, 8, 12, device=cuda, generator=torch.Generator().manual_seed(3))
+    model = Forecaster(dataclasses.replace(mc, use_pallas=True, use_fused_decoder=True), 8, 12,
+                       device=cuda, state=plain.state_dict())
+    rng = np.random.default_rng(3)
+    b, n, k = 64, 32, 20
+    xy = torch.cumsum(_t(rng, b, n, 8, 2, scale=0.4), dim=2) + _t(rng, b, n, 1, 2, scale=2)
+    mask = torch.from_numpy(rng.random((b, n)) < 0.4).to(cuda)
+    mask[:, 0] = True
+    stats = NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32))
+    stream = plain._rollout_stream(k * b, n, torch.Generator(device=cuda).manual_seed(5))
+    before = (fused_gat.fused_gat.launches, fused_decoder.fused_decode.launches)
+    got = model.rollout_k(xy, mask, stats, k, stream=stream)
+    torch.cuda.synchronize()
+    assert (fused_gat.fused_gat.launches, fused_decoder.fused_decode.launches) == (
+        before[0] + 8, before[1] + 1)
+    want = plain.rollout_k(xy, mask, stats, k, stream=stream)
+    assert torch.isfinite(got).all() and got.shape == (k, b, n, 12, 2)
+    err = torch.where(mask[None, :, :, None, None], (got - want).abs(), 0.0).flatten(2).amax(2)
+    assert int((err > 1e-3).sum()) <= 0.01 * err.numel(), err.max().item()
 
 
 @pytest.mark.parametrize("encoder, count", [("rnn", 8 + 12), ("attn", 2 + 12)])

@@ -91,7 +91,9 @@ def test_forecaster_needs_a_gpu_unless_asked_for_the_cpu():
 
 
 def _port_files():
-    return sorted((ROOT / "mmtraj_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "mmtraj_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_parity_rehearsal.py",
+        ROOT / "tools" / "torch_yardstick.py"]
 
 
 def test_port_imports_neither_jax_nor_mmtraj():
@@ -105,7 +107,7 @@ def test_port_imports_neither_jax_nor_mmtraj():
             "mmtraj_torch/orbax_io/__init__.py", "mmtraj_torch/orbax_io/zstd.py",
             "mmtraj_torch/orbax_io/crc32c.py", "mmtraj_torch/orbax_io/ocdbt.py",
             "mmtraj_torch/orbax_io/zarr.py", "mmtraj_torch/orbax_io/tree.py",
-            "chip_smoke.py"} <= scanned
+            "chip_smoke.py", "tools/torch_parity_rehearsal.py", "tools/torch_yardstick.py"} <= scanned
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -12,12 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# fused_decode beyond the model's own widths, (N, hidden, embed, HD, M) with 4
-# heads: config 4 (hidden = embed = HD = 64, heads of 16) at N = 64 and 128,
-# and widths off the 8-column tiles (dh = 12; 6M = 30 and 18 head columns).
-DECODER_CASES = [(64, 64, 64, 64, 5), (128, 64, 64, 64, 5), (64, 32, 32, 48, 5),
-                 (16, 20, 12, 48, 3)]
-DECODER_HEADS = 4
+# fused_decode beyond the model's own widths, (N, hidden, embed, HD, M, heads):
+# config 4 (hidden = embed = HD = 64, 4 heads of 16) at N = 64 and 128, widths
+# off the 8-column tiles (4 heads, dh = 12; 6M = 30 and 18 head columns), and
+# config 3 (one head of 64) at its N_max = 32.
+DECODER_CASES = [(64, 64, 64, 64, 5, 4), (128, 64, 64, 64, 5, 4), (64, 32, 32, 48, 5, 4),
+                 (16, 20, 12, 48, 3, 4), (32, 64, 64, 64, 5, 1)]
 
 
 def tensor(rng, *shape, scale=1.0, device="cuda") -> torch.Tensor:
@@ -62,18 +62,19 @@ def decoder_stream(rng, bk, steps, n, m, device="cuda"):
     return gumbel, tensor(rng, bk, steps, n, 2, device=device)
 
 
-def decoder_case(fused_decoder, n, hidden, embed, hd, m, bk=100, steps=12, device="cuda"):
+def decoder_case(fused_decoder, n, hidden, embed, hd, m, heads, bk=100, steps=12,
+                 device="cuda"):
     """One case of ``DECODER_CASES`` -> (args, kwargs) of ``fused_decode`` and
     ``reference_decode``, from the seed n + hidden + hd: bk rollout graphs of
     n agents, 75% of them valid, positions spread over about 3 m around the
     origin with a 2 m radius."""
     rng = np.random.default_rng(n + hidden + hd)
-    p, hw, hb = decoder_params(rng, hidden, embed, hd, DECODER_HEADS, m, device)
+    p, hw, hb = decoder_params(rng, hidden, embed, hd, heads, m, device)
     hw, hb = fused_decoder.permute_head(hw, hb, m)
     h0, xy0 = tensor(rng, bk, n, hidden, device=device), tensor(rng, bk, n, 2, scale=3, device=device)
     mask = torch.from_numpy(rng.random((bk, n)) < 0.75).to(device)
     gumbel, normal = decoder_stream(rng, bk, steps, n, m, device)
-    kw = dict(num_heads=DECODER_HEADS, num_mixtures=m, radius=2.0, sigma_min=1e-3, rho_max=0.99,
+    kw = dict(num_heads=heads, num_mixtures=m, radius=2.0, sigma_min=1e-3, rho_max=0.99,
               stats_mean=np.array([0.01, -0.02], np.float32),
               stats_std=np.array([0.4, 0.5], np.float32))
     return (h0, xy0, mask, gumbel, normal, p, hw, hb), kw
