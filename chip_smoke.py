@@ -190,6 +190,19 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    ``C3_SMOKE_FRAMES`` frames a scene (a smoke of the yardstick, not the
    yardstick: its rows are those of a model trained for 200 steps), with
    route A and plain agreeing within ``EVAL_ADE_TOL``.
+19. (run before 7's line) the port's ``experiments/`` scripts: each kernel
+   at the shapes they reach against its plain version (``fused_gat`` at
+   hidden 128 with 4 heads of 32 and at one head of 64, N = 64, B = 16 and
+   25; ``fused_gat_lanes`` over 3 lanes of each, each lane equal to a single
+   launch to the bit; the ``fused_gat`` and ``attend`` autograd Functions,
+   forward and gradients, at the training batch and the variety rollout's;
+   ``attend`` at HD = 128, N = 64 and 128; ``fused_decode`` at the two new
+   ``DECODER_CASES``), with device times, bounds and occupancy; then on a
+   ``X_FRAMES``-frame synthetic tree ``experiments/torch_social_ablation.py
+   --arm C1`` and ``experiments/torch_dense_sweep.py --cell A``, each with
+   ``--fast --steps X_STEPS`` and two seeds as one population, and their
+   reports with ``--route both`` (route A within ``EVAL_ADE_TOL`` of plain on
+   every row), every run with exact launches.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -282,6 +295,10 @@ IMPORT_ADE_TOL = 1e-6  # meters: the imported scene against the original file
 # use_pallas against plain; the population's chunk; the yardstick smoke's steps and frames.
 C3_B, C3_TRAIN_STEPS, C3_POP_M = 64, 3, 10
 C3_SMOKE_STEPS, C3_SMOKE_FRAMES = 200, 120
+# Phase 19: the experiments' training scripts at a smoke size (frames a scene, steps, seeds), their
+# agent capacity, and the (hidden, heads) they take the kernels to.
+X_FRAMES, X_STEPS, X_SEEDS, X_N = 120, 4, (0, 1), 64
+X_WIDTHS = ((128, 4), (64, 1))
 # Phase 12 (bf16): a kernel route's step against the plain route's from the
 # same state, of the new hidden state's largest |value|; best-of-K ADE/FDE of
 # two bf16 routes, meters.
@@ -2533,6 +2550,207 @@ def config3_phase(torch, dev, card, counted, zero) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def experiments_phase(torch, dev, card, counted, zero) -> None:
+    """Phase 19: the port's ``experiments/`` scripts and reports on the card,
+    and the kernels at the shapes they reach (see the module's docstring)."""
+    from mmtraj_torch import evaluate as ev
+    from mmtraj_torch import train as tr
+    from mmtraj_torch.cli import main as cli_main
+    from mmtraj_torch.data.registry import load_scene_windows
+    from mmtraj_torch.ops import _build, fused_attend, fused_decoder, fused_gat
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tools"))
+    sys.path.insert(0, str(root / "experiments"))
+    import kernel_inputs
+    import torch_dense_sweep
+    import torch_dense_sweep_report
+    import torch_social_ablation
+    import torch_social_ablation_report
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(19)
+
+    def held(name, out_k, out_p):
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
+              f"experiments {name}: max abs err {err}")
+        return err
+
+    def report(name, shape, err, fn_k, fn_p, cost, occ, plain_reps=11):
+        ms = time_ms(torch, fn_k)
+        plain_ms = time_ms(torch, fn_p, reps=plain_reps, inner=1 if plain_reps < 11 else 5)
+        bound_ms, bound_by = bound(*cost[:2])
+        log(f"experiments {name} {shape}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), tc bound "
+            f"{tc_bound(*cost):.6f} ms; {json.dumps(occ)}; {card}")
+
+    def gat_args(b, d, heads, lead=()):
+        t = kernel_inputs.tensor
+        return (t(rng, *lead, b, X_N, d), torch.stack([kernel_inputs.attend_tile(rng, b, X_N)
+                                                       for _ in range(max(1, math.prod(lead)))]
+                                                      ).reshape(*lead, b, X_N, X_N),
+                t(rng, *lead, d, d, scale=0.3), t(rng, *lead, heads, d // heads, scale=0.3),
+                t(rng, *lead, heads, d // heads, scale=0.3), t(rng, *lead, d, d, scale=0.3),
+                t(rng, *lead, d, scale=0.1))
+
+    # a. the kernels at the experiments' shapes against their plain versions:
+    # dense-sweep cell A (hidden 128, 4 heads of 32) and social arm C (one
+    # head of 64), config 4's N = 64.
+    for d, heads in X_WIDTHS:
+        for b in (16, 25):  # the training batch, the evaluate batch
+            args = gat_args(b, d, heads)
+            err = held(f"fused_gat ({b}, {X_N}, {d}) H={heads}", fused_gat.fused_gat(*args, heads),
+                       fused_gat.gat_math(*args, heads))
+            check(torch.equal(fused_gat.fused_gat(*args, heads)[:, -1], args[6].expand(b, d)),
+                  "experiments fused_gat: a row without edges is not bo")
+            report(f"fused_gat H={heads}", (b, X_N, d), err,
+                   lambda args=args, heads=heads: fused_gat.fused_gat(*args, heads),
+                   lambda args=args, heads=heads: fused_gat.gat_math(*args, heads),
+                   gat_cost(b, X_N, d, d, heads, d), _build.occupancy("gat", X_N, d, heads, d, d))
+        lanes = gat_args(16, d, heads, (len(X_SEEDS) + 1,))
+        s = lanes[0].shape[0]
+
+        def lanes_plain(lanes=lanes, heads=heads, s=s):
+            return torch.stack([fused_gat.gat_math(*(x[i] for x in lanes), heads)
+                                for i in range(s)])
+
+        got = fused_gat.fused_gat_lanes(*lanes, heads)
+        err = held(f"fused_gat_lanes ({s}, 16, {X_N}, {d}) H={heads}", got, lanes_plain())
+        for i in range(s):
+            check(torch.equal(got[i], fused_gat.fused_gat(*(x[i] for x in lanes), heads)),
+                  f"experiments fused_gat_lanes: lane {i} differs from a single launch")
+        report(f"fused_gat_lanes H={heads}", (s, 16, X_N, d), err,
+               lambda lanes=lanes, heads=heads: fused_gat.fused_gat_lanes(*lanes, heads),
+               lanes_plain, lanes_cost(s, 16, X_N, d, d, heads, d),
+               _build.occupancy("gat", X_N, d, heads, d, d))
+        # The autograd Functions use_pallas training runs: forward and every
+        # input's gradient, at the training batch and the variety rollout's.
+        for b in (16, 16 * VARIETY_N):
+            h, att, wv, a_src, a_dst, wo, bo = gat_args(b, d, heads)
+            up = kernel_inputs.tensor(rng, b, X_N, d)
+            v = h @ wv
+            for name, kernel, plain, inputs, run in (
+                    ("fused_gat", fused_gat.fused_gat, fused_gat.gat_math,
+                     [h, wv, a_src, a_dst, wo, bo],
+                     lambda fn, xs: fn(xs[0], att, *xs[1:], heads)),
+                    ("attend", fused_attend.attend, fused_attend.attend_math,
+                     [v, v @ fused_gat._block_diag(a_src), v @ fused_gat._block_diag(a_dst)],
+                     lambda fn, xs: fn(*xs, att, heads))):
+                leaves = [x.contiguous().clone().requires_grad_() for x in inputs]
+                with torch.enable_grad():
+                    out_k, out_p = run(kernel, leaves), run(plain, leaves)
+                    g_k = torch.autograd.grad(out_k, leaves, up)
+                    g_p = torch.autograd.grad(out_p, leaves, up)
+                err = held(f"{name} Function ({b}, {X_N}, {d}) H={heads}", out_k, out_p)
+                g_err = max(held(f"{name} Function gradient ({b}, {X_N}, {d})", a, c)
+                            for a, c in zip(g_k, g_p))
+                log(f"experiments {name} autograd Function ({b}, {X_N}, {d}) H={heads}: forward "
+                    f"{err:.3e}, gradients of {len(leaves)} inputs {g_err:.3e} (tol {KERNEL_TOL})")
+    for n in (64, 128):  # attend at hidden 128, 4 heads: the rollout's B·K graphs
+        bk = 500 if n == 64 else 240
+        t = kernel_inputs.tensor
+        a_args = (t(rng, bk, n, 128), t(rng, bk, n, 4, scale=2), t(rng, bk, n, 4, scale=2),
+                  kernel_inputs.attend_tile(rng, bk, n), 4)
+        err = held(f"attend ({bk}, {n}, 128)", fused_attend.attend(*a_args),
+                   fused_attend.attend_math(*a_args))
+        report("attend H=4", (bk, n, 128), err, lambda a_args=a_args: fused_attend.attend(*a_args),
+               lambda a_args=a_args: fused_attend.attend_math(*a_args),
+               attend_cost(bk, n, 128, 4), _build.occupancy("attend", n, 4, 128))
+    for case in kernel_inputs.DECODER_CASES[-2:]:
+        n, hid, emb, hd, m, heads = case
+        args, kw = kernel_inputs.decoder_case(fused_decoder, *case, bk=B * K, device=dev)
+        # The stats on the card, as a caller holds them: a host copy cannot be graphed.
+        kw.update({k: torch.as_tensor(kw[k], device=dev) for k in ("stats_mean", "stats_std")})
+        out_k = fused_decoder.fused_decode(*args, **kw)
+        out_p = fused_decoder.reference_decode(*args, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out_k).all()), f"experiments fused_decode {case}: not finite")
+        worst, past = kernel_inputs.rollout_errors(out_k, out_p, args[2], ROLLOUT_TOL)
+        check(past <= MAX_DIVERGED * B * K,
+              f"experiments fused_decode {case}: {past} of {B * K} rollouts past {ROLLOUT_TOL} m")
+        per_graph = torch.where(args[2][:, None, :, None], (out_k - out_p).abs(), 0.0).flatten(1)
+        per_graph = per_graph.amax(1)
+        n_weights = sum(x.numel() for x in (*(y for dd in args[5].values() for y in dd.values()),
+                                            args[6], args[7]))
+        log(f"experiments fused_decode {case}: {past} of {B * K} rollouts past {ROLLOUT_TOL} m")
+        report(f"fused_decode hidden={hid} H={heads}", (B * K, TP, n),
+               per_graph[per_graph <= ROLLOUT_TOL].max().item(),
+               lambda args=args, kw=kw: fused_decoder.fused_decode(*args, **kw),
+               lambda args=args, kw=kw: fused_decoder.reference_decode(*args, **kw),
+               decode_cost(B * K, TP, n, hid, emb, hd, heads, m, n_weights),
+               _build.occupancy("decoder", n, hid, emb, heads, hd, m), plain_reps=3)
+    log(f"experiments kernels: {time.perf_counter() - t_phase:.1f} s")
+
+    # b. the training scripts: social arm C1 (config 4, one head) and dense cell A
+    # (hidden 128) under --fast, two seeds as one population.
+    tmp = Path(tempfile.mkdtemp(prefix="tmp_experiments_", dir=root))
+    try:
+        data, runs = str(tmp / "data" / "synthetic"), str(tmp / "runs")
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(cli_main(["generate-data", "--data-dir", data, "--seed", "0", "--n-frames",
+                            str(X_FRAMES)]) == 0, "experiments: generate-data")
+        n_test = len(load_scene_windows(data, "univ", TO, TP))
+        on_card = ["--device", dev.type]
+        smoke = ["--fast", "--steps", str(X_STEPS), "--seeds", *map(str, X_SEEDS), "--runs", runs,
+                 "--data-dir", data] + on_card
+        S = len(X_SEEDS)
+        capture = (tr.CAPTURE_WARMUP + 1) * (TO + TP)  # a chunk counts its warm-up and capture
+        per_eval = S * math.ceil(n_test / 16) * (TO + 2 * TP)  # each seed's final evaluation
+        want = {**zero, "fused_gat_lanes": capture, "fused_gat": capture + per_eval}
+        for name, script, argv in (("social arm C1", torch_social_ablation, ["--arm", "C1"]),
+                                   ("dense cell A", torch_dense_sweep, ["--cell", "A"])):
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with torch.enable_grad(), contextlib.redirect_stdout(out):
+                code, counts = counted(lambda: script.main(argv + smoke))
+            check(code == 0 and counts == want,
+                  f"experiments {name}: exit {code}, launches {counts}, want {want}")
+            finals = [ln for ln in out.getvalue().splitlines() if ln.startswith("final (seed")]
+            check(len(finals) == S, f"experiments {name}: {finals}")
+            log(f"experiments {name} ({X_STEPS} steps, seeds {list(X_SEEDS)}, --fast, "
+                f"{X_FRAMES}-frame tree): {time.perf_counter() - t0:.1f} s; launches {counts}; "
+                + "; ".join(finals))
+
+        # c. their reports on both routes: route A within EVAL_ADE_TOL of plain.
+        def batches(oversample):
+            return math.ceil(n_test / ev.vmem_friendly_batch(20 * oversample, X_N,
+                                                              bytes_per_elem=4))
+
+        for name, mod, argv, protocols in (
+                ("social ablation report", torch_social_ablation_report, [], (1,)),
+                ("dense sweep report", torch_dense_sweep_report, [], (1, 6))):
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                code, counts = counted(lambda: mod.main(
+                    argv + ["--runs", runs, "--data-dir", data, "--route", "both", "--seeds",
+                            *map(str, X_SEEDS)] + on_card))
+            n_b = S * sum(batches(o) for o in protocols)
+            want = {**zero, "fused_gat": (TO + TP) * n_b, "fused_decode": n_b}
+            check(code == 0 and counts == want,
+                  f"experiments {name}: exit {code}, launches {counts}, want {want}")
+            tables = json.loads(out.getvalue().strip().splitlines()[-1])
+            a, p = tables["A"], tables["plain"]
+            if "iid" in a:  # the dense report: one table a protocol
+                a = {f"{k} {t}": r for k, rows in a.items() for t, r in rows.items()}
+                p = {f"{k} {t}": r for k, rows in p.items() for t, r in rows.items()}
+            present = [t for t, r in a.items() if r is not None]
+            gaps = [abs(a[t][m][0] - p[t][m][0]) for t in present for m in ("min_ade", "min_fde")]
+            check(present and all(a[t]["route"] == "A" for t in present)
+                  and max(gaps) <= EVAL_ADE_TOL,
+                  f"experiments {name}: rows {present}, route gaps {gaps}")
+            for t in present:
+                log(f"experiments {name} {t}: route A ADE/FDE {a[t]['min_ade'][0]:.4f}/"
+                    f"{a[t]['min_fde'][0]:.4f} m, plain {p[t]['min_ade'][0]:.4f}/"
+                    f"{p[t]['min_fde'][0]:.4f} m")
+            log(f"experiments {name} (--route both): {time.perf_counter() - t0:.1f} s; launches "
+                f"{counts}; largest route gap {max(gaps):.2e} m (tol {EVAL_ADE_TOL})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2959,6 +3177,11 @@ def main() -> int:
     t0 = time.perf_counter()
     config3_phase(torch, dev, card, counted, dict.fromkeys(counters, 0))
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19. the experiments' scripts and reports, the kernels at their shapes ------------------
+    t0 = time.perf_counter()
+    experiments_phase(torch, dev, card, counted, dict.fromkeys(counters, 0))
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. the kernels line ----------------------------------------------------
     sources = {

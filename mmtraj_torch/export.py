@@ -152,7 +152,8 @@ def load_exported(path: str):
             "serve`")
     # Registers the mmtraj::* ops an artifact's graph may call (building and
     # loading the kernels waits for a launch).
-    from mmtraj_torch.ops import fused_attend, fused_decoder, fused_gat  # noqa: F401
+    from mmtraj_torch.ops import (  # noqa: F401  # lint: ok: imported to register the ops
+        fused_attend, fused_decoder, fused_gat)
 
     extra = {META: ""}
     program = torch.export.load(path, extra_files=extra)

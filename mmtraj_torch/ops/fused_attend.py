@@ -114,7 +114,7 @@ def _attend_op(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor, att: t
 
 
 @_attend_op.register_kernel("cuda")
-def _attend_cuda(v, s_src, s_dst, att, num_heads):
+def _attend_cuda(v, s_src, s_dst, att, num_heads):  # lint: ok: torch.library calls it
     _check(v, s_src, s_dst, att, num_heads)
     out = _launch("attend", v, s_src, s_dst, att, num_heads)
     attend.launches += 1
@@ -129,7 +129,7 @@ def _attend_packed_op(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
 
 
 @_attend_packed_op.register_kernel("cuda")
-def _attend_packed_cuda(v, s_src, s_dst, att, num_heads):
+def _attend_packed_cuda(v, s_src, s_dst, att, num_heads):  # lint: ok: torch.library calls it
     _check(v, s_src, s_dst, att, num_heads)
     out = _launch("attend_packed", v, s_src, s_dst, att, num_heads)
     attend_packed.launches += 1
@@ -145,7 +145,8 @@ _attend_packed_op.register_fake(_attend_fake)
 
 
 @torch.library.register_vmap("mmtraj::attend")
-def _attend_vmap(info, in_dims, v, s_src, s_dst, att, num_heads):
+def _attend_vmap(  # lint: ok: torch.library calls it
+        info, in_dims, v, s_src, s_dst, att, num_heads):
     """``mmtraj::attend`` under ``torch.func.vmap`` of S lanes: every input
     with its lane axis first (an unbatched one expanded), the lanes folded
     into the graphs of one launch, as JAX's batching rule folds them into

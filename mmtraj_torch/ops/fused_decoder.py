@@ -148,15 +148,17 @@ def _fused_decode_op(h0: torch.Tensor, xy0: torch.Tensor, mask: torch.Tensor,
 
 
 @_fused_decode_op.register_fake
-def _fused_decode_fake(h0, xy0, mask, gumbel, normal, weights, stats, num_heads, num_mixtures,
-                       radius, sigma_min, rho_max):
+def _fused_decode_fake(  # lint: ok: torch.library calls it
+        h0, xy0, mask, gumbel, normal, weights, stats, num_heads, num_mixtures,
+        radius, sigma_min, rho_max):
     B, T, N, _ = normal.shape
     return h0.new_empty((B, T, N, 2))
 
 
 @_fused_decode_op.register_kernel("cuda")
-def _fused_decode_cuda(h0, xy0, mask, gumbel, normal, weights, stats, num_heads, num_mixtures,
-                       radius, sigma_min, rho_max):
+def _fused_decode_cuda(  # lint: ok: torch.library calls it
+        h0, xy0, mask, gumbel, normal, weights, stats, num_heads, num_mixtures,
+        radius, sigma_min, rho_max):
     B, N, Hd = h0.shape
     T = gumbel.shape[1]
     M = num_mixtures

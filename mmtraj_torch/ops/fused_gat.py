@@ -65,12 +65,14 @@ def _fused_gat_op(h: torch.Tensor, attend: torch.Tensor, wv: torch.Tensor, a_src
 
 
 @_fused_gat_op.register_kernel("cuda")
-def _fused_gat_cuda(h, attend, wv, a_src, a_dst, wo, bo, num_heads):
+def _fused_gat_cuda(  # lint: ok: torch.library calls it
+        h, attend, wv, a_src, a_dst, wo, bo, num_heads):
     return _launch(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
 
 
 @_fused_gat_op.register_fake
-def _fused_gat_fake(h, attend, wv, a_src, a_dst, wo, bo, num_heads):
+def _fused_gat_fake(  # lint: ok: torch.library calls it
+        h, attend, wv, a_src, a_dst, wo, bo, num_heads):
     return h.new_empty((h.shape[0], h.shape[1], wo.shape[1]))
 
 
@@ -84,12 +86,14 @@ def _fused_gat_lanes_op(h: torch.Tensor, attend: torch.Tensor, wv: torch.Tensor,
 
 
 @_fused_gat_lanes_op.register_kernel("cuda")
-def _fused_gat_lanes_cuda(h, attend, wv, a_src, a_dst, wo, bo, num_heads):
+def _fused_gat_lanes_cuda(  # lint: ok: torch.library calls it
+        h, attend, wv, a_src, a_dst, wo, bo, num_heads):
     return _launch_lanes(h, attend, wv, a_src, a_dst, wo, bo, num_heads)
 
 
 @_fused_gat_lanes_op.register_fake
-def _fused_gat_lanes_fake(h, attend, wv, a_src, a_dst, wo, bo, num_heads):
+def _fused_gat_lanes_fake(  # lint: ok: torch.library calls it
+        h, attend, wv, a_src, a_dst, wo, bo, num_heads):
     return h.new_empty((h.shape[0], h.shape[1], h.shape[2], wo.shape[2]))
 
 
@@ -100,7 +104,8 @@ def _lanes(t: torch.Tensor, dim, S: int) -> torch.Tensor:
 
 
 @torch.library.register_vmap("mmtraj::fused_gat")
-def _fused_gat_vmap(info, in_dims, h, attend, wv, a_src, a_dst, wo, bo, num_heads):
+def _fused_gat_vmap(  # lint: ok: torch.library calls it
+        info, in_dims, h, attend, wv, a_src, a_dst, wo, bo, num_heads):
     """``mmtraj::fused_gat`` under ``torch.func.vmap`` of S lanes, in one
     launch, as JAX's batching rule makes a grid axis of the vmapped axis:
     lanes that share the weights fold into the graphs of one

@@ -47,7 +47,8 @@ _t, _attend_tile = kernel_inputs.tensor, kernel_inputs.attend_tile
 
 
 @pytest.mark.parametrize("n, heads, hd", [(8, 2, 16), (64, 4, 64), (100, 4, 64), (256, 8, 64),
-                                           (40, 4, 48), (24, 1, 72), (32, 1, 64)])
+                                           (40, 4, 48), (24, 1, 72), (32, 1, 64), (64, 4, 128),
+                                           (128, 4, 128)])
 def test_attend_kernel_matches_plain(cuda, n, heads, hd):
     rng = np.random.default_rng(n)
     v, s_src, s_dst = _t(rng, 6, n, hd), _t(rng, 6, n, heads, scale=2), _t(rng, 6, n, heads, scale=2)
@@ -182,6 +183,109 @@ def test_gat_lanes_kernel_lane_equals_a_single_launch(cuda, s, b, n, heads):
         one = fused_gat.fused_gat(h[i], att[i], *(w[i] for w in ws), heads)
         torch.cuda.synchronize()
         assert torch.equal(got[i], one), (i, (got[i] - one).abs().max().item())
+
+
+# The experiments' config-4 variants (experiments/torch_*.py) at N = 64:
+# dense-sweep cell A's hidden 128 (4 heads of 32, D = HD = Dout = 128) and the
+# social ablation's one head of 64, at the training batch (16) and the
+# evaluate batch (25).
+EXPERIMENT_GAT = [(16, 128, 4), (25, 128, 4), (16, 64, 1), (25, 64, 1)]
+
+
+def _gat_args(rng, b, n, d, heads, device):
+    return (_t(rng, b, n, d), _attend_tile(rng, b, n, device), _t(rng, d, d, scale=0.3),
+            _t(rng, heads, d // heads, scale=0.3), _t(rng, heads, d // heads, scale=0.3),
+            _t(rng, d, d, scale=0.3), _t(rng, d, scale=0.1))
+
+
+@pytest.mark.parametrize("b, d, heads", EXPERIMENT_GAT)
+def test_gat_kernel_at_the_experiments_shapes(cuda, b, d, heads):
+    """One launch against ``gat_math``; every graph's last row has no edge
+    and comes out exactly bo."""
+    rng = np.random.default_rng(b + d + heads)
+    args = _gat_args(rng, b, 64, d, heads, cuda)
+    before = fused_gat.fused_gat.launches
+    got = fused_gat.fused_gat(*args, heads)
+    torch.cuda.synchronize()
+    assert fused_gat.fused_gat.launches == before + 1
+    torch.testing.assert_close(got, fused_gat.gat_math(*args, heads), **KERNEL)
+    assert torch.equal(got[:, -1], args[6].expand_as(got[:, -1]))
+
+
+@pytest.mark.parametrize("s, b, d, heads", [(3, 16, 128, 4), (3, 16, 64, 1)])
+def test_gat_lanes_at_the_experiments_shapes(cuda, s, b, d, heads):
+    """Dense-sweep cell A's population (3 seeds, B = 16, D = 128) and arm C's
+    at one head: ``fused_gat_lanes`` against ``gat_math`` lane by lane, and
+    each lane equal to a single ``fused_gat`` launch to the bit."""
+    rng = np.random.default_rng(s * b + d)
+    lanes = [_gat_args(rng, b, 64, d, heads, cuda) for _ in range(s)]
+    h, att, *ws = (torch.stack(x) for x in zip(*lanes))
+    before = fused_gat.fused_gat_lanes.launches
+    got = fused_gat.fused_gat_lanes(h, att, *ws, heads)
+    torch.cuda.synchronize()
+    assert fused_gat.fused_gat_lanes.launches == before + 1
+    for i in range(s):
+        torch.testing.assert_close(got[i], fused_gat.gat_math(*lanes[i], heads), **KERNEL)
+        one = fused_gat.fused_gat(*lanes[i], heads)
+        torch.cuda.synchronize()
+        assert torch.equal(got[i], one), (i, (got[i] - one).abs().max().item())
+
+
+@pytest.mark.parametrize("b, d, heads", [(16, 128, 4), (128, 128, 4), (16, 64, 1), (128, 64, 1)])
+def test_functions_at_the_experiments_training_shapes(cuda, b, d, heads):
+    """``fused_gat`` and ``attend`` as the autograd Functions that
+    ``use_pallas`` training runs, at the experiments' training batch (16) and
+    variety rollout (8 x 16): forward and every input's gradient against
+    autograd of the plain math."""
+    rng = np.random.default_rng(b + d)
+    h, att, wv, a_src, a_dst, wo, bo = _gat_args(rng, b, 64, d, heads, cuda)
+    up = _t(rng, b, 64, d)
+    v = h @ wv
+    cases = (
+        (fused_gat.fused_gat, fused_gat.gat_math, [h, wv, a_src, a_dst, wo, bo],
+         lambda fn, xs: fn(xs[0], att, *xs[1:], heads)),
+        (fused_attend.attend, fused_attend.attend_math,
+         [v, v @ fused_gat._block_diag(a_src), v @ fused_gat._block_diag(a_dst)],
+         lambda fn, xs: fn(*xs, att, heads)),
+    )
+    for kernel, plain, inputs, run in cases:
+        leaves = [x.contiguous().clone().requires_grad_() for x in inputs]
+        out_k, out_p = run(kernel, leaves), run(plain, leaves)
+        g_k = torch.autograd.grad(out_k, leaves, up)
+        g_p = torch.autograd.grad(out_p, leaves, up)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out_k, out_p, **KERNEL)
+        for a, c in zip(g_k, g_p):
+            torch.testing.assert_close(a, c, **KERNEL)
+
+
+@pytest.mark.parametrize("hidden, heads", [(128, 4), (64, 1)])
+def test_experiment_configs_route_a_matches_the_plain_route(cuda, hidden, heads):
+    """Config 4 at hidden 128 (4 heads of 32) and at one head of 64: route A's
+    ``rollout_k`` at the evaluate batch (B = 25, N = 64, K = 20) launches 8
+    ``fused_gat`` and 1 ``fused_decode`` and stays within 1e-3 m of the plain
+    route on one stream (at most 1% of the rollouts further off)."""
+    from mmtraj_torch.config import config4
+
+    mc = dataclasses.replace(config4().model, hidden_dim=hidden, num_heads=heads)
+    plain = Forecaster(mc, 8, 12, device=cuda, generator=torch.Generator().manual_seed(hidden))
+    model = Forecaster(dataclasses.replace(mc, use_pallas=True, use_fused_decoder=True), 8, 12,
+                       device=cuda, state=plain.state_dict())
+    rng = np.random.default_rng(heads)
+    b, n, k = 25, 64, 20
+    xy = torch.cumsum(_t(rng, b, n, 8, 2, scale=0.4), dim=2) + _t(rng, b, n, 1, 2, scale=5)
+    mask = torch.from_numpy(rng.random((b, n)) < 0.75).to(cuda)
+    stats = NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32))
+    stream = plain._rollout_stream(k * b, n, torch.Generator(device=cuda).manual_seed(6))
+    before = (fused_gat.fused_gat.launches, fused_decoder.fused_decode.launches)
+    got = model.rollout_k(xy, mask, stats, k, stream=stream)
+    torch.cuda.synchronize()
+    assert (fused_gat.fused_gat.launches, fused_decoder.fused_decode.launches) == (
+        before[0] + 8, before[1] + 1)
+    want = plain.rollout_k(xy, mask, stats, k, stream=stream)
+    assert torch.isfinite(got).all() and got.shape == (k, b, n, 12, 2)
+    err = torch.where(mask[None, :, :, None, None], (got - want).abs(), 0.0).flatten(2).amax(2)
+    assert int((err > 1e-3).sum()) <= 0.01 * err.numel(), err.max().item()
 
 
 @pytest.mark.parametrize("n_cap", [16, 32, 64])

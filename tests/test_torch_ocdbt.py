@@ -11,6 +11,7 @@ CRC-32C and raises ``ValueError`` naming the file.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -101,14 +102,20 @@ def test_crc32c():
 
 
 def test_a_flipped_node_byte_names_the_file(tmp_path):
+    """A byte flipped in every file under ``d/`` (tensorstore may write the
+    nodes into one file or several): the first node the reader reads fails
+    its CRC-32C, and the error names that file."""
     _write(tmp_path, {"compression": None, "max_inline_value_bytes": 1 << 20}, _batches(20, 1))
-    (node,) = os.listdir(tmp_path / "d")
-    path = tmp_path / "d" / node
-    data = bytearray(path.read_bytes())
-    verify_footer(bytes(data), str(path))
-    data[20] ^= 0x10
-    path.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match=f"{node}.*CRC-32C checksum mismatch"):
+    nodes = sorted(os.listdir(tmp_path / "d"))
+    assert nodes
+    for node in nodes:
+        path = tmp_path / "d" / node
+        data = bytearray(path.read_bytes())
+        verify_footer(bytes(data), str(path))
+        data[20] ^= 0x10
+        path.write_bytes(bytes(data))
+    named = "|".join(re.escape(node) for node in nodes)
+    with pytest.raises(ValueError, match=f"({named}).*CRC-32C checksum mismatch"):
         OcdbtReader(str(tmp_path))
 
 

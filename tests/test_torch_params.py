@@ -93,7 +93,7 @@ def test_forecaster_needs_a_gpu_unless_asked_for_the_cpu():
 def _port_files():
     return sorted((ROOT / "mmtraj_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_parity_rehearsal.py",
-        ROOT / "tools" / "torch_yardstick.py"]
+        ROOT / "tools" / "torch_yardstick.py"] + sorted((ROOT / "experiments").glob("torch_*.py"))
 
 
 def test_port_imports_neither_jax_nor_mmtraj():
@@ -107,7 +107,12 @@ def test_port_imports_neither_jax_nor_mmtraj():
             "mmtraj_torch/orbax_io/__init__.py", "mmtraj_torch/orbax_io/zstd.py",
             "mmtraj_torch/orbax_io/crc32c.py", "mmtraj_torch/orbax_io/ocdbt.py",
             "mmtraj_torch/orbax_io/zarr.py", "mmtraj_torch/orbax_io/tree.py",
-            "chip_smoke.py", "tools/torch_parity_rehearsal.py", "tools/torch_yardstick.py"} <= scanned
+            "chip_smoke.py", "tools/torch_parity_rehearsal.py", "tools/torch_yardstick.py",
+            "experiments/torch_common.py", "experiments/torch_social_ablation.py",
+            "experiments/torch_social_ablation_report.py", "experiments/torch_dense_sweep.py",
+            "experiments/torch_dense_sweep_report.py", "experiments/torch_scale_quality.py",
+            "experiments/torch_scale_report.py", "experiments/torch_mixed_zara1_probe.py",
+            "experiments/torch_mixed_loo.py", "experiments/torch_mixed_headline.py"} <= scanned
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -14,10 +14,13 @@ import torch
 
 # fused_decode beyond the model's own widths, (N, hidden, embed, HD, M, heads):
 # config 4 (hidden = embed = HD = 64, 4 heads of 16) at N = 64 and 128, widths
-# off the 8-column tiles (4 heads, dh = 12; 6M = 30 and 18 head columns), and
-# config 3 (one head of 64) at its N_max = 32.
+# off the 8-column tiles (4 heads, dh = 12; 6M = 30 and 18 head columns),
+# config 3 (one head of 64) at its N_max = 32, and the experiments' config-4
+# variants at N = 64: dense-sweep cell A's hidden 128 (4 heads of 32) and the
+# social ablation's one head of 64.
 DECODER_CASES = [(64, 64, 64, 64, 5, 4), (128, 64, 64, 64, 5, 4), (64, 32, 32, 48, 5, 4),
-                 (16, 20, 12, 48, 3, 4), (32, 64, 64, 64, 5, 1)]
+                 (16, 20, 12, 48, 3, 4), (32, 64, 64, 64, 5, 1), (64, 128, 64, 128, 5, 4),
+                 (64, 64, 64, 64, 5, 1)]
 
 
 def tensor(rng, *shape, scale=1.0, device="cuda") -> torch.Tensor:
