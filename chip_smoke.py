@@ -26,7 +26,9 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
 5. route B (the attend kernel in every GAT call) the same way;
 6. dense crowd: ``attend`` and the lane-packed ``attend(packed=True)``
    against the plain chain at (B*K, N) = (500, 64), with an odd B and an
-   all-masked row; ``rollout_k`` at N_max = 128 (and 256), B = 12, K = 20
+   all-masked row; the packed kernel's gradient against autograd of the
+   plain chain, and ``PACKED_LANES`` lanes of it under ``torch.func.vmap``
+   in one launch, equal to a launch a lane to the bit; ``rollout_k`` at N_max = 128 (and 256), B = 12, K = 20
    under ``attend_kernel="auto"`` for both encoder families, with exact
    ``attend`` launch counts, against the plain route on the same stream;
    ``attend`` on the inputs those runs gave it; the dense-crowd benchmark
@@ -237,6 +239,7 @@ F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (data sheet
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM device-memory bytes/s (data sheet)
 KERNEL_TOL = 1e-4  # attend and GAT: atol = rtol
+PACKED_LANES = 3  # lanes of the packed attend under vmap, one launch
 ROLLOUT_TOL = 1e-3  # meters, on valid agents
 MAX_DIVERGED = 0.01  # share of (window, sample) rollouts allowed past ROLLOUT_TOL
 EVAL_DATA = Path(__file__).resolve().parent / "data" / "synthetic3000"
@@ -3005,6 +3008,36 @@ def main() -> int:
         check(not out_k[0, 5].any(), f"{name}: the all-masked row is not zero")
         log(f"{name} {tuple(v.shape)} H={H}: max abs err {err:.3e}, odd B={B * K - 1} with an "
             f"all-masked row {err_odd:.3e} (tol {KERNEL_TOL})")
+    # The packed kernel's gradient (JAX's custom_vjp: the VJP of the plain
+    # math on the saved inputs) against autograd of attend_math; then S lanes
+    # under vmap, folded by the op's vmap rule into one launch, against S
+    # launches, to the bit.
+    leaves = [a.detach().clone().requires_grad_() for a in attend_args[:3]]
+    up = torch.randn(v.shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    n0 = fused_attend.attend_packed.launches
+    with torch.enable_grad():
+        g_k = torch.autograd.grad(packed(*leaves, attend_args[3], H), leaves, up)
+        n_grad = fused_attend.attend_packed.launches - n0
+        g_p = torch.autograd.grad(fused_attend.attend_math(*leaves, attend_args[3], H), leaves,
+                                  up)
+    torch.cuda.synchronize()
+    grad_err = max((a - b).abs().max().item() for a, b in zip(g_k, g_p))
+    check(n_grad == 1 and all(torch.allclose(a, b, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+                              for a, b in zip(g_k, g_p)),
+          f"attend_packed gradient: {n_grad} launches, max abs err {grad_err}")
+    lanes = [torch.stack([a.roll(i, 0) for i in range(PACKED_LANES)]) for a in attend_args[:3]]
+    n0 = fused_attend.attend_packed.launches
+    folded = torch.func.vmap(lambda a, b, c: packed(a, b, c, attend_args[3], H))(*lanes)
+    n_vmap = fused_attend.attend_packed.launches - n0
+    apart = torch.stack([packed(*(x[i] for x in lanes), attend_args[3], H)
+                         for i in range(PACKED_LANES)])
+    torch.cuda.synchronize()
+    check(n_vmap == 1 and torch.equal(folded, apart),
+          f"attend_packed under vmap: {n_vmap} launches for {PACKED_LANES} lanes, max abs "
+          f"diff to one launch a lane {(folded - apart).abs().max().item()}")
+    log(f"attend_packed {tuple(v.shape)} H={H}: gradient (v, s_src, s_dst) max abs err "
+        f"{grad_err:.3e} vs autograd of the plain math (tol {KERNEL_TOL}), one launch; vmap of "
+        f"{PACKED_LANES} lanes in {n_vmap} launch, equal to {PACKED_LANES} launches to the bit")
     results["attend_packed"] = dict(
         occupancy=_build.occupancy("attend_packed", N, H, v.shape[-1]),
         max_abs_err=max(err, err_odd),

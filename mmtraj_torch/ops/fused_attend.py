@@ -31,10 +31,12 @@ Both kernels are ``torch.library`` custom ops, ``mmtraj::attend`` and
 is built or loaded then): the CPU implementation is ``attend_math``, the
 CUDA one launches the kernel, and the fake one gives the output's shape, so
 ``torch.export`` keeps each call as one node of its graph.  The wrappers
-call the ops on every device.  ``mmtraj::attend`` also has a vmap rule
-(the lanes folded into its graphs, one launch); ``attend_packed``, which
-has no backward and no training path, has none, and vmapping it raises
-torch's own error.
+call the ops on every device.  Both ops have a vmap rule (the lanes folded
+into the graphs of one launch, as JAX's batching rule folds them into its
+grid), and both wrappers are differentiable where a gradient is recorded
+(``_Attend``, ``_AttendPacked``): the backward is the VJP of
+``attend_math``, as JAX's ``custom_vjp`` differentiates it whatever
+``packed`` says.  There is no backward kernel.
 """
 
 from __future__ import annotations
@@ -144,22 +146,31 @@ def _attend_fake(v, s_src, s_dst, att, num_heads):
 _attend_packed_op.register_fake(_attend_fake)
 
 
-@torch.library.register_vmap("mmtraj::attend")
-def _attend_vmap(  # lint: ok: torch.library calls it
-        info, in_dims, v, s_src, s_dst, att, num_heads):
-    """``mmtraj::attend`` under ``torch.func.vmap`` of S lanes: every input
-    with its lane axis first (an unbatched one expanded), the lanes folded
-    into the graphs of one launch, as JAX's batching rule folds them into
-    its grid."""
-    S = info.batch_size
+def _fold_lanes(op):
+    """A vmap rule for ``op`` (``mmtraj::attend`` or ``mmtraj::attend_packed``)
+    over S lanes: every input with its lane axis first (an unbatched one
+    expanded), the lanes folded into the graphs of one launch, as JAX's
+    batching rule folds them into its grid.  No graph reads another's rows
+    (each has its own edge masks and tensor-core chain), so the result is
+    that of S launches, and the packed kernel's pairing of graphs into
+    blocks does not enter it."""
 
-    def fold(t, dim):
-        t = t.movedim(dim, 0) if dim is not None else t.expand((S,) + t.shape)
-        return t.reshape((-1,) + t.shape[2:]).contiguous()
+    def rule(info, in_dims, v, s_src, s_dst, att, num_heads):
+        S = info.batch_size
 
-    out = torch.ops.mmtraj.attend(*(fold(t, d) for t, d in zip((v, s_src, s_dst, att), in_dims)),
-                                  num_heads)
-    return out.reshape((S, -1) + out.shape[1:]), 0
+        def fold(t, dim):
+            t = t.movedim(dim, 0) if dim is not None else t.expand((S,) + t.shape)
+            return t.reshape((-1,) + t.shape[2:]).contiguous()
+
+        out = op(*(fold(t, d) for t, d in zip((v, s_src, s_dst, att), in_dims)), num_heads)
+        return out.reshape((S, -1) + out.shape[1:]), 0
+
+    return rule
+
+
+torch.library.register_vmap("mmtraj::attend", _fold_lanes(torch.ops.mmtraj.attend))
+torch.library.register_vmap("mmtraj::attend_packed",
+                            _fold_lanes(torch.ops.mmtraj.attend_packed))
 
 
 class _Attend(torch.autograd.Function):
@@ -189,6 +200,17 @@ class _Attend(torch.autograd.Function):
         return _math_vjp(attend_math, ctx.saved_tensors, needs, ctx.num_heads, g)
 
 
+class _AttendPacked(_Attend):
+    """``mmtraj::attend_packed`` forward (the kernel on the card,
+    ``attend_math`` on the CPU) with ``_Attend``'s backward, the VJP of
+    ``attend_math``: JAX's ``attend_pallas(..., packed=True)`` takes the same
+    ``custom_vjp`` as the unpacked call (``mmtraj/ops/fused_attend.py:245``)."""
+
+    @staticmethod
+    def forward(v, s_src, s_dst, att, num_heads):
+        return torch.ops.mmtraj.attend_packed(v, s_src, s_dst, att, num_heads)
+
+
 def _math_vjp(math_fn, saved, needs, num_heads: int, g):
     """The gradients of ``math_fn(*saved, num_heads)`` for the saved inputs
     that ``needs`` marks (None for the rest and for ``num_heads``), by
@@ -213,8 +235,9 @@ def attend(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
            att: torch.Tensor, num_heads: int, group: int = 8,
            packed: bool = False) -> torch.Tensor:
     """``mmtraj::attend``: the Hopper kernel for CUDA tensors, ``attend_math``
-    for CPU tensors.  ``att`` is the 0/1 attend tile.  The unpacked kernel
-    is differentiable (``_Attend``, taken where a gradient is recorded).
+    for CPU tensors.  ``att`` is the 0/1 attend tile.  Both kernels are
+    differentiable (``_Attend``, ``_AttendPacked``, taken where a gradient is
+    recorded).
 
     The signature and defaults are those of the JAX package's
     ``attend_pallas``.  ``packed=True`` launches the lane-packed kernel
@@ -235,12 +258,10 @@ def attend_packed(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
                   att: torch.Tensor, num_heads: int) -> torch.Tensor:
     """``mmtraj::attend_packed``: the lane-packed Hopper kernel (a pair of
     graphs a block; an odd B leaves the last block's second graph idle) for
-    CUDA tensors, ``attend_math`` for CPU tensors.  It has no backward (only
-    the op sweep calls it) and raises on every device when asked for a
-    gradient."""
+    CUDA tensors, ``attend_math`` for CPU tensors.  Differentiable
+    (``_AttendPacked``, taken where a gradient is recorded)."""
     if _wants_grad(v, s_src, s_dst):
-        raise ValueError("attend(packed=True) has no backward; call it under torch.no_grad() "
-                         "or use the unpacked kernel")
+        return _AttendPacked.apply(v, s_src, s_dst, att, num_heads)
     return torch.ops.mmtraj.attend_packed(v, s_src, s_dst, att, num_heads)
 
 

@@ -5,7 +5,8 @@
 * ``python -m mmtraj_torch.benchmarks.bench --device cpu`` prints exactly one
   JSON line with the headline keys; ``train_bench`` runs a step and counts
   its FLOPs.
-* ``fused_gat`` and ``attend`` are ``torch.autograd.Function``s on the card.
+* ``fused_gat``, ``attend`` and the packed ``attend`` are
+  ``torch.autograd.Function``s on the card.
   Here their forward takes the plain version, so the tests pin the wiring:
   the Function's gradients equal autograd of the plain math exactly, and
   ``gradcheck`` passes in float64.
@@ -150,11 +151,19 @@ def test_plain_versions_and_functions_pass_gradcheck_in_float64():
 
 
 def test_packed_attend_refuses_a_gradient():
-    h, att, wv, _, _, _, _, heads = _gat_inputs(torch.float32, b=2)
-    v = (h @ wv).requires_grad_()
-    s = torch.zeros((2, 6, heads))
-    with pytest.raises(ValueError, match="no backward"):
-        fused_attend.attend(v, s, s, att, heads, 8, True)
-    with torch.no_grad():
-        out = fused_attend.attend(v, s, s, att, heads, 8, True)
-    assert torch.equal(out, fused_attend.attend_math(v.detach(), s, s, att, heads))
+    """It refuses none: ``_AttendPacked`` passes ``gradcheck`` in float64,
+    the wrapper takes it where a gradient is recorded, and its gradients
+    equal autograd of the plain math exactly (on the CPU the op's forward is
+    ``attend_math``)."""
+    h, att, wv, _, _, _, _, heads = _gat_inputs(torch.float64, b=2, n=4, d=4, hd=4, dout=4)
+    v = (h @ wv).detach().requires_grad_()
+    s_src = torch.randn((2, 4, heads), dtype=torch.float64, requires_grad=True)
+    s_dst = torch.randn((2, 4, heads), dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: fused_attend._AttendPacked.apply(a, b, c, att, heads), (v, s_src, s_dst))
+    out = fused_attend.attend(v, s_src, s_dst, att, heads, 8, True)
+    assert out.grad_fn is not None and "AttendPacked" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out.sum(), (v, s_src, s_dst))
+    want = torch.autograd.grad(fused_attend.attend_math(v, s_src, s_dst, att, heads).sum(),
+                               (v, s_src, s_dst))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -96,6 +96,44 @@ def test_packed_attend_kernel_matches_plain(cuda, n, b):
     assert not got[:, -1].any()
 
 
+@pytest.mark.parametrize("b, n", [(7, 64), (12, 100), (500, 64)])
+def test_packed_attend_gradient_matches_autograd_of_plain(cuda, b, n):
+    """``_AttendPacked``: the kernel's forward, one launch, and the VJP of
+    ``attend_math`` (JAX's ``custom_vjp``) for v, s_src and s_dst."""
+    rng = np.random.default_rng(b + n)
+    v, s_src, s_dst = _t(rng, b, n, 64), _t(rng, b, n, 4, scale=2), _t(rng, b, n, 4, scale=2)
+    att = _attend_tile(rng, b, n, cuda)
+    up = _t(rng, b, n, 64)
+    leaves = [x.requires_grad_() for x in (v, s_src, s_dst)]
+    before = fused_attend.attend_packed.launches
+    got = torch.autograd.grad(fused_attend.attend(*leaves, att, 4, 8, True), leaves, up)
+    want = torch.autograd.grad(fused_attend.attend_math(*leaves, att, 4), leaves, up)
+    torch.cuda.synchronize()
+    assert fused_attend.attend_packed.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **KERNEL)
+
+
+@pytest.mark.parametrize("s, b, n", [(3, 7, 64), (4, 500, 64), (2, 5, 32)])
+def test_packed_attend_lanes_in_one_launch_equal_a_launch_a_lane(cuda, s, b, n):
+    """Under ``torch.func.vmap`` the op's rule folds the S lanes into the
+    graphs of one launch; with an odd B a block pairs the last graph of a
+    lane with the first of the next, and still each graph's result is that
+    of its own launch, to the bit."""
+    rng = np.random.default_rng(s * b + n)
+    v, s_src, s_dst = _t(rng, s * b, n, 64), _t(rng, s * b, n, 4), _t(rng, s * b, n, 4)
+    v, s_src, s_dst = (x.reshape((s, b) + x.shape[1:]) for x in (v, s_src, s_dst))
+    att = _attend_tile(rng, b, n, cuda)
+    before = fused_attend.attend_packed.launches
+    folded = torch.func.vmap(lambda a, c, d: fused_attend.attend(a, c, d, att, 4, 8, True))(
+        v, s_src, s_dst)
+    torch.cuda.synchronize()
+    assert fused_attend.attend_packed.launches == before + 1
+    apart = torch.stack([fused_attend.attend(v[i], s_src[i], s_dst[i], att, 4, 8, True)
+                         for i in range(s)])
+    assert torch.equal(folded, apart)
+
+
 def test_packed_attend_refuses_an_odd_group_on_the_card(cuda):
     rng = np.random.default_rng(2)
     v, s = _t(rng, 4, 64, 64), _t(rng, 4, 64, 4)
