@@ -1456,7 +1456,7 @@ def serving_phase(torch, dev, card, cfg, routes, state, stats, xy_obs, mask, cou
         check("served 11 request(s)" in run.stderr, f"cli serve stderr: {run.stderr[-500:]}")
         log(f"cli export {t_export:.2f} s, cli serve of 12 lines (one malformed) {t_serve:.2f} s "
             f"(each a fresh process, beside the exports above): " + " | ".join(
-                x for x in run.stderr.splitlines() if x.startswith(("serving", "aggregated"))))
+                x for x in run.stderr.splitlines() if x.startswith("serving")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1565,8 +1565,6 @@ def scale_out_phase(torch, dev, card, cfg, counted, zero, results) -> None:
             n = tr.CAPTURE_WARMUP + 1 if k == 0 else 0
             check(counts == {key: n * v for key, v in per_pop_step.items()},
                   f"population chunk {k}: launches {counts}, want {n} x {per_pop_step}")
-        check(pop.capture_launches == per_pop_step,
-              f"population: capture launches {pop.capture_launches}, want {per_pop_step}")
         pop_peak = torch.cuda.max_memory_allocated() - base_mem
         pop_losses = np.concatenate(pop_losses)  # (steps, S)
         seq_s, worst, lane_rows = [], 0.0, {}
@@ -2499,9 +2497,7 @@ def config3_phase(torch, dev, card, counted, zero) -> None:
                                         t.augment_flip, t.loss, t.variety_n)
         first, counts = counted(lambda: pop(xy, mask, idx[:C3_POP_M], range(C3_POP_M)))
         want = {k_: (tr.CAPTURE_WARMUP + 1) * c for k_, c in per_pop.items()}
-        check(counts == want and pop.capture_launches == per_pop,
-              f"config3 population: launches {counts} (want {want}), capture "
-              f"{pop.capture_launches}")
+        check(counts == want, f"config3 population: launches {counts} (want {want})")
         t0 = time.perf_counter()
         _, counts = counted(lambda: pop(xy, mask, idx[C3_POP_M:], range(C3_POP_M, 2 * C3_POP_M)))
         pop_ms = 1e3 * (time.perf_counter() - t0) / C3_POP_M

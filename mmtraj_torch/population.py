@@ -65,6 +65,7 @@ from mmtraj_torch.train import (Optimizer, StepDraws, TrainResult, _GraphedStep,
                                 index_stream, objective, replays_graph, run_chunk, shard_draws,
                                 step_draws)
 from mmtraj_torch.utils.logging import MetricsLogger
+from mmtraj_torch.utils.profiling import annotate
 
 
 class _LaneObjective(nn.Module):
@@ -133,7 +134,8 @@ def make_population_step(model: Forecaster, params: Dict[str, torch.Tensor],
     (stacked like ``params``) after each update.  Lane s draws
     ``step_draws`` of ``seeds[s]``.  On the CPU, and under
     ``enable_nan_debugging``, the steps run eagerly; otherwise on CUDA a chunk of M > 1 steps replays one captured step M times
-    (``pop.capture_launches`` holds the capture's kernel launches).
+    (``train.run_chunk``).  Either way a step records the spans
+    ``train.step`` (``step``) and ``train.draw`` while a profiler runs.
 
     With a ``mesh`` every rank passes the same indices and takes its rows of
     every lane's batch; lane s's loss is its rows' numerator over its whole
@@ -194,7 +196,6 @@ def make_population_step(model: Forecaster, params: Dict[str, torch.Tensor],
 
     state = stacked + optimizer.state() + ema_list
     graphed: List[_GraphedStep] = []
-    capture_launches: Dict[str, int] = {}
     said: list = []
 
     def pop(xy_all, mask_all, idx_chunk, step_ids: Sequence[int]) -> torch.Tensor:
@@ -209,21 +210,20 @@ def make_population_step(model: Forecaster, params: Dict[str, torch.Tensor],
         if M == 1 or not replays_graph(model.device, said):
             losses = []
             for idx, s in zip(torch.from_numpy(idx_chunk), step_ids):
-                idx = idx.to(model.device)
-                losses.append(core(xy_all[idx], mask_all[idx], draw(s, B, N)))
+                with annotate("train.step", step=s):
+                    idx = idx.to(model.device)
+                    with annotate("train.draw"):
+                        draws = draw(s, B, N)
+                    losses.append(core(xy_all[idx], mask_all[idx], draws))
             return torch.stack(losses)
 
         def make():
-            g = _GraphedStep(core, draw(step_ids[0], B, N), state, stacked, xy_all, mask_all,
-                             (S, B))
-            capture_launches.clear()
-            capture_launches.update(g.launches)
-            return g
+            return _GraphedStep(core, draw(step_ids[0], B, N), state, stacked, xy_all, mask_all,
+                                (S, B))
 
         return run_chunk(graphed, make, model, stacked, xy_all, mask_all, idx_chunk, step_ids,
                          lambda s: draw(s, B, N))
 
-    pop.capture_launches = capture_launches
     return pop
 
 

@@ -45,10 +45,22 @@ writer never deadlocks the loop.
 The artifact's program runs eagerly; each call draws its stream on the
 device (``export.draw_stream``) and allocates its output anew, so a result
 handed to the writer thread is never overwritten.
+
+**Spans** (``mmtraj_torch.utils.profiling.annotate``, recorded only while a
+torch profiler runs).  The loop's thread: ``serve.input_wait`` (blocked
+for the next line), ``serve.parse`` (``request``, the line's index in the
+input), ``serve.flush`` (``call``, one device call's group, the parent of
+its ``serve.dispatch`` and of its emits), ``serve.dispatch`` (``windows``;
+in ``PredictServer.predict_async``: padding, the stream's draw, the copies
+in and the program's launches), ``serve.emit_wait`` (``request``: the put
+into the writer's FIFO, long while it is full).  The writer thread (the
+loop's thread on the serial path): ``serve.fetch`` (``call``, once a call),
+``serve.encode`` and ``serve.write`` (``request``).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import sys
 import time
@@ -56,6 +68,8 @@ from typing import IO, Optional
 
 import numpy as np
 import torch
+
+from mmtraj_torch.utils.profiling import annotate
 
 
 def to_host(out) -> np.ndarray:
@@ -121,15 +135,16 @@ class PredictServer:
 
         xy, mask = self.check(xy, mask)
         b, n = mask.shape
-        xy_p = np.zeros((self.batch, self.n_agents, self.obs_len, 2), np.float32)
-        xy_p[:b, :n] = xy
-        mask_p = np.zeros((self.batch, self.n_agents), bool)
-        mask_p[:b, :n] = mask
-        gumbel, normal = draw_stream(self._rows, self.pred_len, self.n_agents,
-                                     self._mixtures, seed, self.device)
-        with torch.no_grad():
-            out = self._call(torch.from_numpy(xy_p).to(self.device),
-                             torch.from_numpy(mask_p).to(self.device), gumbel, normal)
+        with annotate("serve.dispatch", windows=b):
+            xy_p = np.zeros((self.batch, self.n_agents, self.obs_len, 2), np.float32)
+            xy_p[:b, :n] = xy
+            mask_p = np.zeros((self.batch, self.n_agents), bool)
+            mask_p[:b, :n] = mask
+            gumbel, normal = draw_stream(self._rows, self.pred_len, self.n_agents,
+                                         self._mixtures, seed, self.device)
+            with torch.no_grad():
+                out = self._call(torch.from_numpy(xy_p).to(self.device),
+                                 torch.from_numpy(mask_p).to(self.device), gumbel, normal)
         return out, (b, n)
 
     def predict(self, xy: np.ndarray, mask: Optional[np.ndarray] = None,
@@ -309,8 +324,9 @@ def serve_lines(artifact_path: str, in_stream: IO[str], out_stream: IO[str],
     st = {"err": 0, "answered": 0, "t": time.monotonic(),
           "last_answered": 0, "last_calls": 0, "last_lines": 0}
 
-    def write_resp(resp: dict, snap: tuple) -> None:
-        print(json.dumps(resp), file=out_stream, flush=True)
+    def write_resp(resp: dict, snap: tuple, request: int) -> None:
+        with annotate("serve.write", request=request):
+            print(json.dumps(resp), file=out_stream, flush=True)
         st["answered"] += 1
         if "error" in resp:
             st["err"] += 1
@@ -342,7 +358,7 @@ def serve_lines(artifact_path: str, in_stream: IO[str], out_stream: IO[str],
                 item = out_q.get()
                 if item is _DONE:
                     return
-                payload, snap = item
+                payload, snap, request = item
                 try:
                     if callable(payload):
                         # Materializing the response pays the device wait +
@@ -361,7 +377,7 @@ def serve_lines(artifact_path: str, in_stream: IO[str], out_stream: IO[str],
                             resp = {"error": f"{type(e).__name__}: {e}"}
                     else:
                         resp = payload
-                    write_resp(resp, snap)
+                    write_resp(resp, snap, request)
                 except Exception as e:  # noqa: BLE001 — stream write died:
                     # nothing more can ever be answered, so THIS is the
                     # replica-fatal case.  Record it, then drain the FIFO so
@@ -379,21 +395,22 @@ def serve_lines(artifact_path: str, in_stream: IO[str], out_stream: IO[str],
         writer = _threading.Thread(target=_writer, daemon=True)
         writer.start()
 
-        def emit(resp_or_thunk) -> None:
+        def emit(resp_or_thunk, request: int) -> None:
             # Bounded-timeout put that re-checks the writer's health: a
             # blocking put against a full FIFO whose consumer has died would
             # hang the dispatch loop forever.  The 100 ms poll
             # costs nothing on the happy path (the put succeeds immediately
             # whenever the queue has room).
-            item = (resp_or_thunk, (mt["ok"], mt["calls"], mt["lines"]))
-            while True:
-                if writer_err:
-                    raise writer_err[0]
-                try:
-                    out_q.put(item, timeout=0.1)
-                    return
-                except _queue.Full:
-                    continue
+            item = (resp_or_thunk, (mt["ok"], mt["calls"], mt["lines"]), request)
+            with annotate("serve.emit_wait", request=request):
+                while True:
+                    if writer_err:
+                        raise writer_err[0]
+                    try:
+                        out_q.put(item, timeout=0.1)
+                        return
+                    except _queue.Full:
+                        continue
 
         def finish() -> None:
             while True:
@@ -408,22 +425,23 @@ def serve_lines(artifact_path: str, in_stream: IO[str], out_stream: IO[str],
             if writer_err:
                 raise writer_err[0]
     else:
-        def emit(resp_or_thunk) -> None:
+        def emit(resp_or_thunk, request: int) -> None:
             write_resp(resp_or_thunk() if callable(resp_or_thunk)
                        else resp_or_thunk,
-                       (mt["ok"], mt["calls"], mt["lines"]))
+                       (mt["ok"], mt["calls"], mt["lines"]), request)
 
         def finish() -> None:
             pass
 
-    def _lazy_fetch(dev, b: int, n: int):
+    def _lazy_fetch(dev, b: int, n: int, call: int):
         """One shared, memoized device->host fetch for the request (or
-        group) that produced ``dev``; thunks on the writer thread call it so
-        the blocking fetch rides that thread, overlapped with the device
-        loop's next dispatch.  Memoized so a group of G responses pays ONE
-        fetch, exactly like the blocking path — and a fetch FAILURE is
-        memoized too, so every member of a failed group answers its error
-        line from the one attempt instead of re-blocking on a dead fetch."""
+        group) that produced ``dev``, device call ``call``; thunks on the
+        writer thread call it so the blocking fetch rides that thread,
+        overlapped with the device loop's next dispatch (the serial path
+        calls it at once).  Memoized so a group of G responses pays ONE
+        fetch — and a fetch FAILURE is memoized too, so every member of a
+        failed group answers its error line from the one attempt instead of
+        re-blocking on a dead fetch."""
         box = [dev, None, None]  # [device buf, host result, fetch error]
 
         def get():
@@ -431,7 +449,8 @@ def serve_lines(artifact_path: str, in_stream: IO[str], out_stream: IO[str],
                 raise box[2]
             if box[1] is None:
                 try:
-                    box[1] = to_host(box[0])[:, :b, :n]
+                    with annotate("serve.fetch", call=call):
+                        box[1] = to_host(box[0])[:, :b, :n]
                 except Exception as e:  # noqa: BLE001 — re-raised per caller
                     box[2] = e
                     box[0] = None
@@ -441,44 +460,58 @@ def serve_lines(artifact_path: str, in_stream: IO[str], out_stream: IO[str],
 
         return get
 
-    def answer_one(r: dict) -> None:
-        try:
-            if pipeline_encode:
-                # Dispatch only; the writer thread pays the device wait +
-                # fetch + encode while this loop parses/dispatches the next
-                # request.  A fetch-time device failure is caught on the
-                # writer thread and answered {"error": ...} on this line,
-                # matching the blocking path's per-request error contract.
-                dev, (b, n) = server.predict_async(r["xy"], r["mask"],
-                                                   r["seed"])
-                get = _lazy_fetch(dev, b, n)
+    call_ids = itertools.count()  # every device call attempted, in order
 
-                def resp(get=get, single=r["single"], enc=r["encoding"]):
+    def dispatch(xy, mask, seed: int, call: int):
+        """Dispatch one device call -> its memoized fetch (``_lazy_fetch``).
+        The pipelined path leaves the device wait + fetch + encode to the
+        writer thread while this loop parses/dispatches the next request; a
+        fetch-time device failure is then caught on the writer thread and
+        answered {"error": ...} on its lines, matching the serial path,
+        which fetches here and answers a failure as a failed call."""
+        dev, (b, n) = server.predict_async(xy, mask, seed)
+        get = _lazy_fetch(dev, b, n, call)
+        if not pipeline_encode:
+            get()
+        return get
+
+    def encode(pred: np.ndarray, enc: str, request: int) -> dict:
+        with annotate("serve.encode", request=request):
+            return _encode_response(pred, server.k, enc)
+
+    def answer_one(r: dict) -> None:
+        call = next(call_ids)
+        with annotate("serve.flush", call=call):
+            try:
+                get = dispatch(r["xy"], r["mask"], r["seed"], call)
+
+                def resp(get=get, single=r["single"], enc=r["encoding"], i=r["request"]):
                     pred = get()
-                    if single:
-                        pred = pred[:, 0]
-                    return _encode_response(pred, server.k, enc)
-            else:
-                pred = server.predict(r["xy"], r["mask"], r["seed"])
-                if r["single"]:
-                    pred = pred[:, 0]
-                resp = lambda: _encode_response(pred, server.k, r["encoding"])  # noqa: E731
-            mt["calls"] += 1
-            mt["lines"] += 1
-            mt["ok"] += 1
-        except Exception as e:  # noqa: BLE001 — must not kill the loop
-            resp = {"error": f"{type(e).__name__}: {e}"}
-        emit(resp)
+                    return encode(pred[:, 0] if single else pred, enc, i)
+                mt["calls"] += 1
+                mt["lines"] += 1
+                mt["ok"] += 1
+            except Exception as e:  # noqa: BLE001 — must not kill the loop
+                resp = {"error": f"{type(e).__name__}: {e}"}
+            emit(resp, r["request"])
+
+    def parse(line: str, i: int) -> dict:
+        """Input line ``i`` -> its validated request (raises on anything
+        wrong)."""
+        with annotate("serve.parse", request=i):
+            r = _parse_request(line, server)
+        r["request"] = i
+        return r
 
     if agg == 1:
-        for line in in_stream:
+        for i, line in enumerate(in_stream):
             line = line.strip()
             if not line:
                 continue
             try:
-                r = _parse_request(line, server)
+                r = parse(line, i)
             except Exception as e:  # noqa: BLE001
-                emit({"error": f"{type(e).__name__}: {e}"})
+                emit({"error": f"{type(e).__name__}: {e}"}, i)
                 continue
             answer_one(r)
         finish()
@@ -506,53 +539,49 @@ def serve_lines(artifact_path: str, in_stream: IO[str], out_stream: IO[str],
             return
         group, n_g = pending[:], max(r["mask"].shape[1] for r in pending)
         pending.clear()
-        xy_b = np.zeros((len(group), n_g, server.obs_len, 2), np.float32)
-        mask_b = np.zeros((len(group), n_g), bool)
-        for j, r in enumerate(group):
-            n = r["mask"].shape[1]
-            xy_b[j, :n] = r["xy"][0]
-            mask_b[j, :n] = r["mask"][0]
-        try:
-            if pipeline_encode:
-                dev, (b_g, _) = server.predict_async(xy_b, mask_b,
-                                                     group[0]["seed"])
-                get = _lazy_fetch(dev, b_g, n_g)
-            else:
-                pred = server.predict(xy_b, mask_b, group[0]["seed"])
-                get = lambda: pred  # noqa: E731
-            mt["calls"] += 1
-            mt["lines"] += len(group)
-        except Exception as e:  # noqa: BLE001
-            for _ in group:
-                emit({"error": f"{type(e).__name__}: {e}"})
-            return
-        if len(group) > 1:
-            print(f"aggregated {len(group)} requests into one device call",
-                  file=log_stream, flush=True)
-        for j, r in enumerate(group):
-            n = r["mask"].shape[1]
-            mt["ok"] += 1
-            emit(lambda get=get, j=j, n=n, enc=r["encoding"]:
-                 _encode_response(get()[:, j, :n], server.k, enc))
+        call = next(call_ids)
+        with annotate("serve.flush", call=call):
+            xy_b = np.zeros((len(group), n_g, server.obs_len, 2), np.float32)
+            mask_b = np.zeros((len(group), n_g), bool)
+            for j, r in enumerate(group):
+                n = r["mask"].shape[1]
+                xy_b[j, :n] = r["xy"][0]
+                mask_b[j, :n] = r["mask"][0]
+            try:
+                get = dispatch(xy_b, mask_b, group[0]["seed"], call)
+                mt["calls"] += 1
+                mt["lines"] += len(group)
+            except Exception as e:  # noqa: BLE001
+                for r in group:
+                    emit({"error": f"{type(e).__name__}: {e}"}, r["request"])
+                return
+            for j, r in enumerate(group):
+                n = r["mask"].shape[1]
+                mt["ok"] += 1
+                emit(lambda get=get, j=j, n=n, enc=r["encoding"], i=r["request"]:
+                     encode(get()[:, j, :n], enc, i), r["request"])
 
+    line_ids = itertools.count()  # the index of each input line
     while True:
         timeout = max(0.0, deadline - time.monotonic()) if pending else None
         try:
-            item = q.get(timeout=timeout)
+            with annotate("serve.input_wait"):
+                item = q.get(timeout=timeout)
         except queue.Empty:  # window expired with requests pending
             flush()
             continue
         if item is _EOF:
             flush()
             break
+        i = next(line_ids)
         line = item.strip()
         if not line:
             continue
         try:
-            r = _parse_request(line, server)
+            r = parse(line, i)
         except Exception as e:  # noqa: BLE001
             flush()  # answers stay in request order
-            emit({"error": f"{type(e).__name__}: {e}"})
+            emit({"error": f"{type(e).__name__}: {e}"}, i)
             continue
         if pending and not (r["single"] and r["seed"] == pending[0]["seed"]):
             flush()

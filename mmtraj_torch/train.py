@@ -53,7 +53,7 @@ from mmtraj_torch.ops import _build, launch_counters
 from mmtraj_torch.parallel.mesh import all_reduce_sum, is_writer, make_mesh, shard_batch
 from mmtraj_torch.params import State, save_npz
 from mmtraj_torch.utils.logging import MetricsLogger
-from mmtraj_torch.utils.profiling import nan_debugging
+from mmtraj_torch.utils.profiling import annotate, nan_debugging
 
 CAPTURE_WARMUP = 2  # eager steps on a side stream before a step's capture
 
@@ -508,18 +508,31 @@ def run_chunk(graphed: list, make, model, params, xy_all, mask_all, idx_chunk: n
     (captured anew by ``make()`` when the window set or the index shape
     changed): step k's indices ``idx_chunk[k]`` and draws ``draw_step(s)``
     go into the slots before its replay.  -> the losses, stacked (a device
-    tensor); the parameters' ``.grad`` then hold the last step's gradient."""
-    if not graphed or graphed[0].key != _GraphedStep.key_of(xy_all, mask_all,
-                                                            idx_chunk.shape[1:]):
-        graphed[:] = [make()]
-    g = graphed[0]
-    idx_dev = torch.from_numpy(idx_chunk).pin_memory().to(model.device, non_blocking=True)
-    losses = torch.empty((len(step_ids),) + g.loss.shape, device=model.device)
-    for k, s in enumerate(step_ids):
-        losses[k].copy_(g.replay(idx_dev[k], draw_step(s)))
-    for p, grad in zip(params, g.grads):
-        p.grad = grad
-    return losses
+    tensor); the parameters' ``.grad`` then hold the last step's gradient.
+
+    Spans (``profiling.annotate``): ``train.chunk`` around it all,
+    ``train.capture`` around a capture, ``train.upload`` (the index chunk
+    pinned and copied), and a step's ``train.step`` (``step``) with its
+    ``train.draw`` and ``train.replay`` (the slot copies and the replay)."""
+    with annotate("train.chunk"):
+        if not graphed or graphed[0].key != _GraphedStep.key_of(xy_all, mask_all,
+                                                                idx_chunk.shape[1:]):
+            with annotate("train.capture"):
+                graphed[:] = [make()]
+        g = graphed[0]
+        with annotate("train.upload"):
+            idx_dev = torch.from_numpy(idx_chunk).pin_memory().to(model.device,
+                                                                  non_blocking=True)
+        losses = torch.empty((len(step_ids),) + g.loss.shape, device=model.device)
+        for k, s in enumerate(step_ids):
+            with annotate("train.step", step=s):
+                with annotate("train.draw"):
+                    draws = draw_step(s)
+                with annotate("train.replay"):
+                    losses[k].copy_(g.replay(idx_dev[k], draws))
+        for p, grad in zip(params, g.grads):
+            p.grad = grad
+        return losses
 
 
 def replays_graph(device: torch.device, said: list) -> bool:

@@ -3,7 +3,8 @@
 
 ``trace_ctx`` records the enclosed region, host and card, and writes a
 Chrome trace (``*.pt.trace.json``) under ``{out_dir}/profile``;
-``annotate`` names a region inside it; ``summarize_trace`` reads a trace
+``annotate`` opens a program span, recorded only while a profiler runs
+(``spans()``, ``clear_spans()``); ``summarize_trace`` reads a trace
 offline and totals its device events (``cli profile-stats``).  Debug aids:
 ``enable_nan_debugging`` raises on the first NaN that any op produces,
 forward or backward (slow: every op's output is checked on the host), and
@@ -15,14 +16,19 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import itertools
 import json
 import os
 import socket
+import threading
 import time
 from collections import defaultdict
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+from torch._C import _profiler as _c_profiler
+from torch.autograd import _profiler_enabled as _profiler_here
+from torch.autograd import profiler as _autograd_profiler
 
 # The trace's device events (Kineto's categories); every other event is the host's.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -51,11 +57,150 @@ def trace_ctx(out_dir: Optional[str], enabled: bool = True) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(logdir, name))
 
 
-def annotate(name: str):
-    """A named region inside a trace (``torch.profiler.record_function``)."""
-    import torch
+class Span(NamedTuple):
+    """One program span, as ``spans()`` returns it: ``name``; ``thread``
+    (``threading.get_ident()``); ``start_ns`` and ``end_ns`` on the wall
+    clock (``time.time_ns()``; ``end_ns`` is None while the span is open);
+    ``cpu_ns``, the thread's CPU time over the span (``time.thread_time_ns()``;
+    None while open), so that wall less CPU is time off the CPU (waiting for
+    the GIL, a lock, a blocking copy or the scheduler; where that clock
+    ticks coarsely, every 10 ms on some hosts, only a sum over many spans
+    says it); ``parent``, the index in ``spans()`` of the span open on the
+    same thread when this one began, or None; ``ids``, its own keywords over
+    its parent's; ``outlived``, whether the profiler stopped before the span
+    closed (its end then lies past the traced window)."""
 
-    return torch.profiler.record_function(name)
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: Optional[int]
+    cpu_ns: Optional[int]
+    parent: Optional[int]
+    ids: dict
+    outlived: bool
+
+
+class _Open:
+    """A span while it is open: the context manager ``annotate`` returns."""
+
+    __slots__ = ("name", "ids", "thread", "start_ns", "cpu_ns", "parent", "_kept", "_index",
+                 "_rf")
+
+    def __init__(self, name: str, ids: dict):
+        self.name, self.ids = name, ids
+        self.parent = None
+
+    def __enter__(self) -> "_Open":
+        # The wall clock is read and the profiler's event opened before the
+        # rest, so that a span and its event cover the same time, its own
+        # cost included (the thread's CPU clock can cost a system call).
+        self.start_ns = time.time_ns()
+        if _profiler_here():  # the profiler keeps events of its own thread only
+            self._rf = _c_profiler._RecordFunctionFast(self.name)
+            self._rf.__enter__()
+        else:
+            self._rf = None
+        self.cpu_ns = time.thread_time_ns()
+        stack = _stack()
+        top = stack[-1] if stack else None
+        kept = _kept
+        if top is not None and top._kept is kept:
+            self.parent = top._index
+            self.ids = {**top.ids, **self.ids}
+        self.thread = threading.get_ident()
+        with _lock:
+            self._index = len(kept)
+            kept.append(self)
+        self._kept = kept
+        stack.append(self)
+        return self
+
+    def record(self) -> Span:
+        return Span(self.name, self.thread, self.start_ns, None, None, self.parent, self.ids,
+                    False)
+
+    def __exit__(self, *exc) -> bool:
+        cpu_ns = time.thread_time_ns() - self.cpu_ns
+        _stack().pop()
+        outlived = not _autograd_profiler._is_profiler_enabled
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        end_ns = time.time_ns()
+        # Kept as one flat tuple of numbers and strings, which the garbage
+        # collector stops tracking at its next pass: a traced window keeps
+        # tens of thousands of spans, and a full collection that walked them
+        # all would stall the traced program for tens of milliseconds.
+        self._kept[self._index] = (self.name, self.thread, self.start_ns, end_ns, cpu_ns,
+                                   self.parent, outlived, *itertools.chain(*self.ids.items()))
+        return False
+
+
+_OFF = contextlib.nullcontext()  # what ``annotate`` returns with no profiler running
+_kept: list = []  # every span begun while a profiler ran, in the order begun
+_lock = threading.Lock()
+_local = threading.local()
+
+
+def _stack() -> List[_Open]:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def annotate(name: str, **ids):
+    """A program span named ``name`` around the enclosed code, with ``ids``
+    (``request=``, ``call=``, ``step=``, ``windows=``: whole numbers) that
+    its children on the same thread inherit.
+
+    On only while a torch profiler runs: ``torch.autograd.profiler.
+    _is_profiler_enabled``, a module global that the profiler sets on
+    starting and clears on stopping, so a span is on in every thread (the
+    profiler's own ``torch.autograd._profiler_enabled()`` is per thread and
+    reads False in a thread other than the one that started it).  The
+    harness's traced window, ``trace_ctx`` (``cli train --profile``) and any
+    ``torch.profiler.profile`` turn spans on.  Off, this is one read of that
+    flag and returns one shared no-op context manager: nothing is allocated,
+    recorded or handed to the profiler.
+
+    On, the span is kept in memory (``spans()``, as a ``Span``) and, on the
+    thread that started the profiler, opens a profiler event named ``name``
+    (``torch._C._profiler._RecordFunctionFast``, the C++ form of
+    ``torch.profiler.record_function`` that torch's compiled code uses; the
+    event's category is ``cpu_op``).  The profiler keeps it beside the
+    device's events, so a gap in the device's work falls under the program
+    stage that was open.  ``record_function`` itself is not used: it calls a
+    torch op, which releases the GIL at each edge of the span, where
+    another Python thread (the serve loop's writer) takes it and the span's
+    thread then waits outside any event; it also costs about ten times as
+    much.  The profiler drops events from other threads (there
+    ``torch.autograd._profiler_enabled()`` reads False and no event is
+    opened).  Kineto's ``ts`` is microseconds after the trace's
+    ``baseTimeNanoseconds``, so ``ts * 1000 + baseTimeNanoseconds`` lies
+    just after the span's ``start_ns`` (the span covers its own entry; 0.02
+    to 0.12 ms after it under torch 2.11 with CUDA on an H100's host): the
+    in-memory spans of every thread share the trace's clock through that
+    header.  A span still open when the profiler stops is kept and closes as
+    usual, marked ``outlived``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Open(name, ids)
+
+
+def spans() -> List[Span]:
+    """The spans begun while a profiler ran since the last ``clear_spans()``,
+    in the order begun (open ones have ``end_ns`` None)."""
+    return [x.record() if isinstance(x, _Open)
+            else Span(*x[:6], dict(zip(x[7::2], x[8::2])), x[6]) for x in list(_kept)]
+
+
+def clear_spans() -> None:
+    """Forget every kept span; spans still open close without being kept
+    again, and no later span names one of them as its parent."""
+    global _kept
+    with _lock:
+        _kept = []
 
 
 def _newest_trace(trace_dir: str) -> str:

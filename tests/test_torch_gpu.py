@@ -521,3 +521,48 @@ def test_prefetch_close_lets_the_process_exit_cleanly(cuda):
     # interpreter exits aborts the process (exit 134).
     for r in torch_exit_check.exit_after_close("cuda", runs=3):
         assert torch_exit_check.clean(r), (r.returncode, r.stderr[-2000:])
+
+
+def test_graphed_chunk_records_its_spans(cuda):
+    """``train.run_chunk`` under a profiler: a chunk records ``train.chunk``,
+    one ``train.upload``, a ``train.step`` a step (its id) with a
+    ``train.draw`` and a ``train.replay``, and ``train.capture`` only on
+    the chunk that captured the graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmtraj_torch import config, population, train
+    from mmtraj_torch.utils import profiling
+
+    base = config.config4()
+    cfg = base.replace(model=dataclasses.replace(base.model, hidden_dim=32, embed_dim=32,
+                                                 num_heads=4, use_pallas=True))
+    seeds = [0, 1]
+    model = population.lane_model(cfg, cuda)
+    params = population.stack_lanes([Forecaster(cfg.model, 8, 12, device="cpu",
+                                                generator=torch.Generator().manual_seed(s))
+                                     .state_dict() for s in seeds], cuda)
+    g = torch.Generator().manual_seed(0)
+    xy = torch.cumsum(torch.randn((16, 16, 20, 2), generator=g) * 0.3, 2).to(cuda)
+    mask = torch.ones((16, 16), dtype=torch.bool, device=cuda)
+    pop = population.make_population_step(
+        model, params, train.Optimizer(params, cfg, lanes=True),
+        NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32)), seeds)
+    rng = np.random.default_rng(0)
+    idx = np.stack([np.stack([rng.permutation(16)[:4] for _ in seeds]) for _ in range(6)])
+    for k in range(2):
+        profiling.clear_spans()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            losses = pop(xy, mask, idx[3 * k:3 * k + 3], range(3 * k, 3 * k + 3))
+            torch.cuda.synchronize()
+        spans = profiling.spans()
+        profiling.clear_spans()
+        assert torch.isfinite(losses).all()
+        names = [x.name for x in spans]
+        assert names.count("train.chunk") == names.count("train.upload") == 1
+        assert names.count("train.capture") == (1 if k == 0 else 0)
+        steps = [(i, x) for i, x in enumerate(spans) if x.name == "train.step"]
+        assert [x.ids["step"] for _, x in steps] == list(range(3 * k, 3 * k + 3))
+        for i, x in steps:
+            assert spans[x.parent].name == "train.chunk"
+            assert sorted(d.name for d in spans if d.parent == i) == ["train.draw",
+                                                                     "train.replay"]

@@ -215,6 +215,47 @@ def test_one_population_step_matches_jax():
         np.testing.assert_allclose(v.detach().numpy(), want[k], rtol=1e-5, atol=1e-6, err_msg=k)
 
 
+def test_eager_population_step_records_a_step_span_with_its_draw():
+    """Under a profiler each eager step of ``pop`` records one
+    ``train.step`` (its step id) with one ``train.draw`` child."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmtraj_torch.models.forecaster import Forecaster
+    from mmtraj_torch.utils import profiling
+
+    base = config.config4()
+    cfg = base.replace(model=dataclasses.replace(base.model, **SMALL),
+                       data=dataclasses.replace(base.data, obs_len=TO, pred_len=TP))
+    model = population.lane_model(cfg, "cpu")
+    params = population.stack_lanes([Forecaster(cfg.model, TO, TP, device="cpu",
+                                                generator=torch.Generator().manual_seed(s))
+                                     .state_dict() for s in SEEDS], "cpu")
+    rng = np.random.default_rng(2)
+    windows = random_windows(rng, [3, 5, 2, 6, 4, 1])
+    xy = np.zeros((6, 8, TO + TP, 2), np.float32)
+    mask = np.zeros((6, 8), bool)
+    for w, a in enumerate(windows):
+        xy[w, :len(a)], mask[w, :len(a)] = a, True
+    idx = np.stack([np.stack([rng.permutation(6)[:3] for _ in SEEDS]) for _ in range(3)])
+    pop = population.make_population_step(
+        model, params, train.Optimizer(params, cfg, lanes=True),
+        NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32)), SEEDS)
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        losses = pop(torch.from_numpy(xy), torch.from_numpy(mask), idx, [4, 5, 6])
+    spans = profiling.spans()
+    profiling.clear_spans()
+    assert losses.shape == (3, len(SEEDS)) and torch.isfinite(losses).all()
+    steps = [(i, x) for i, x in enumerate(spans) if x.name == "train.step"]
+    assert [x.ids["step"] for _, x in steps] == [4, 5, 6]
+    for i, x in steps:
+        assert x.parent is None and x.end_ns is not None
+        draws = [d for d in spans if d.name == "train.draw" and d.parent == i]
+        assert len(draws) == 1 and draws[0].ids == {"step": x.ids["step"]}
+        assert x.start_ns <= draws[0].start_ns <= draws[0].end_ns <= x.end_ns
+    assert {x.name for x in spans} == {"train.step", "train.draw"}
+
+
 # -- the tree, the guards, the CLI, data parallelism ----------------------------------
 
 def test_seed_tree_loads_and_resumes(data_dir, tmp_path):

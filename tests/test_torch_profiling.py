@@ -9,6 +9,7 @@ trace file written by hand in the Chrome format the profiler exports."""
 import glob
 import json
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -75,6 +76,173 @@ def test_trace_ctx_disabled_writes_nothing(tmp_path):
         with trace_ctx(out, enabled=enabled):
             torch.ones(4).sum()
     assert not (tmp_path / "run").exists()
+
+
+def test_annotate_is_a_shared_no_op_without_a_profiler(monkeypatch):
+    """With no profiler running a span is one flag read: the same object
+    every time, nothing kept, and no profiler event opened (neither
+    ``record_function`` nor its C++ form called)."""
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function called with no profiler running")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    profiling.clear_spans()
+    first = annotate("serve.parse", request=3)
+    assert annotate("train.step", step=1) is first and annotate("x") is first
+    with annotate("serve.flush", call=0):
+        with annotate("serve.dispatch", windows=8):
+            torch.ones(4).sum()
+    assert profiling.spans() == []
+
+
+def _traced(fn, tmp_path):
+    """Run ``fn`` under a CPU profiler -> (the trace's events, its header's
+    ``baseTimeNanoseconds``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = str(tmp_path / "spans.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        trace = json.load(fh)
+    return trace["traceEvents"], int(trace["baseTimeNanoseconds"])
+
+
+def test_spans_keep_parents_ids_threads_and_outlive_the_profiler(tmp_path):
+    import threading
+
+    profiling.clear_spans()
+    box = {}
+
+    def work():
+        with annotate("writer", call=2):
+            with annotate("writer.inner", request=5):
+                time.sleep(0.002)
+        box["thread"] = threading.get_ident()
+
+    def fn():
+        with annotate("outer", call=1):
+            with annotate("inner", request=4):
+                now = profiling.spans()[-1]  # an open span: no end yet
+                assert now.name == "inner" and now.end_ns is None and now.cpu_ns is None
+                t = threading.Thread(target=work)
+                t.start()
+                t.join()
+            with annotate("inner2", call=3):
+                pass
+        box["late"] = annotate("late", call=9)
+        box["late"].__enter__()
+
+    events, _ = _traced(fn, tmp_path)
+    box["late"].__exit__(None, None, None)  # the profiler has stopped: kept, no error
+    got = {s.name: (i, s) for i, s in enumerate(profiling.spans())}
+    assert set(got) == {"outer", "inner", "inner2", "writer", "writer.inner", "late"}
+    outer, inner, inner2 = got["outer"][1], got["inner"][1], got["inner2"][1]
+    writer, winner, late_s = got["writer"][1], got["writer.inner"][1], got["late"][1]
+    assert outer.parent is None and outer.ids == {"call": 1}
+    assert inner.parent == got["outer"][0] and inner.ids == {"call": 1, "request": 4}
+    assert inner2.parent == got["outer"][0] and inner2.ids == {"call": 3}
+    assert writer.parent is None and winner.parent == got["writer"][0]
+    assert winner.ids == {"call": 2, "request": 5}
+    assert writer.thread == box["thread"] != outer.thread
+    assert late_s.end_ns is not None and late_s.parent is None and late_s.outlived
+    assert [s.name for s in profiling.spans() if s.outlived] == ["late"]
+    for s in profiling.spans():
+        assert s.start_ns <= s.end_ns and 0 <= s.cpu_ns
+    assert inner.start_ns <= writer.start_ns <= winner.end_ns <= inner.end_ns
+    assert winner.end_ns - winner.start_ns >= 2_000_000 > winner.cpu_ns  # asleep, off the CPU
+    names = {e.get("name") for e in events if e.get("cat") == "cpu_op"}
+    assert {"outer", "inner", "inner2"} <= names and "writer" not in names  # other threads' drop
+    profiling.clear_spans()
+    assert profiling.spans() == []
+
+
+def test_spans_from_many_threads_keep_every_span_and_parent():
+    """Threads (more than cores) opening nested spans at once, with a short
+    switch interval: every span kept once, each child's parent its own
+    thread's enclosing span."""
+    import os
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    n_threads, n_spans = 2 * (os.cpu_count() or 2) + 2, 50
+    profiling.clear_spans()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            def work(t):
+                for i in range(n_spans):
+                    with annotate("outer", call=t):
+                        with annotate("inner", step=i):
+                            pass
+
+            threads = [threading.Thread(target=work, args=(t,)) for t in range(n_threads)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+            assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    spans = profiling.spans()
+    profiling.clear_spans()
+    assert len(spans) == 2 * n_threads * n_spans
+    inner = [s for s in spans if s.name == "inner"]
+    for s in inner:
+        p = spans[s.parent]
+        assert p.name == "outer" and p.thread == s.thread and p.ids["call"] == s.ids["call"]
+        assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    pairs = {(s.ids["call"], s.ids["step"]) for s in inner}
+    assert len(pairs) == n_threads * n_spans
+
+
+def test_kept_spans_give_the_collector_nothing_to_walk():
+    """A traced window keeps tens of thousands of spans; a full collection
+    that walked them all would stall the program, so a closed span is kept
+    in a form the collector stops tracking."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with annotate("warm", call=0):
+            pass
+        gc.collect()
+        tracked = len(gc.get_objects())
+        for i in range(2000):
+            with annotate("outer", call=i):
+                with annotate("inner", request=i):
+                    pass
+        gc.collect()
+        added = len(gc.get_objects()) - tracked
+    assert len(profiling.spans()) == 4001 and added < 100, added
+    profiling.clear_spans()
+
+
+def test_span_start_is_on_the_device_traces_clock(tmp_path):
+    """A span's ``start_ns`` (wall clock) lies within 1 ms of its Kineto
+    event's ``ts * 1000 + baseTimeNanoseconds``."""
+    profiling.clear_spans()
+
+    def fn():
+        for i in range(5):
+            with annotate("clock", step=i):
+                time.sleep(0.003)
+
+    events, base = _traced(fn, tmp_path)
+    kineto = sorted(float(e["ts"]) * 1000 + base for e in events
+                    if e.get("name") == "clock" and e.get("cat") == "cpu_op")
+    mine = [s.start_ns for s in profiling.spans() if s.name == "clock"]
+    assert len(kineto) == len(mine) == 5
+    assert max(abs(a - b) for a, b in zip(kineto, mine)) < 1e6
+    profiling.clear_spans()
 
 
 def test_summarize_missing_trace_raises(tmp_path):

@@ -289,6 +289,53 @@ def test_aggregation_preserves_order_with_mixed_requests(artifact, rng):
     )
 
 
+@pytest.mark.parametrize("pipeline_encode", [True, False])
+def test_traced_aggregation_records_a_span_per_stage(artifact, rng, pipeline_encode):
+    """Under a profiler the loop records each request's parse, encode and
+    write, each call's dispatch (with its windows) and fetch, the writer's
+    spans on the writer's thread (the loop's on the serial path), and
+    writes the same bytes as untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmtraj_torch.utils import profiling
+
+    xs = [_walk(rng, 1, n)[0] for n in (2, 3, 1, 2, 3, 2, 1)]
+    reqs = "\n".join(json.dumps({"xy": x.tolist(), "seed": 4,
+                                 "encoding": "b64-npy" if j % 2 else "json"})
+                     for j, x in enumerate(xs))
+    server = PredictServer(artifact)
+    kw = dict(aggregate=3, window_ms=200.0, pipeline_encode=pipeline_encode)
+    plain = io.StringIO()
+    assert serve_lines(server, io.StringIO(reqs), plain, io.StringIO(), **kw) == 7
+    profiling.clear_spans()
+    serve_lines(server, io.StringIO(reqs), io.StringIO(), io.StringIO(), **kw)
+    assert profiling.spans() == []  # nothing is kept untraced
+    traced = io.StringIO()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert serve_lines(server, io.StringIO(reqs), traced, io.StringIO(), **kw) == 7
+    assert traced.getvalue() == plain.getvalue()
+    spans = profiling.spans()
+    profiling.clear_spans()
+    assert all(x.end_ns is not None for x in spans)
+
+    def by(name):
+        return [x for x in spans if x.name == name]
+
+    for name in ("serve.parse", "serve.encode", "serve.write"):
+        assert sorted(x.ids["request"] for x in by(name)) == list(range(7)), name
+    calls = by("serve.dispatch")
+    assert sorted(x.ids["call"] for x in calls) == sorted(x.ids["call"] for x in by("serve.fetch"))
+    assert len({x.ids["call"] for x in calls}) == len(calls) == len(by("serve.flush")) == 3
+    assert sum(x.ids["windows"] for x in calls) == 7
+    assert all(spans[x.parent].name == "serve.flush" for x in calls)
+    loop = {x.thread for x in by("serve.parse") + by("serve.flush") + by("serve.input_wait")}
+    writer = {x.thread for x in by("serve.fetch") + by("serve.encode") + by("serve.write")}
+    assert len(loop) == len(writer) == 1
+    assert (loop != writer) == pipeline_encode
+    assert len(by("serve.emit_wait")) == (7 if pipeline_encode else 0)
+    assert by("serve.input_wait")
+
+
 def test_stats_lines_report_counts_and_group_size(artifact, rng):
     """--stats-every N: one operational line per N answered requests, with
     cumulative ok/err and (under aggregation) the mean device-call group."""
