@@ -205,6 +205,19 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    ``--fast --steps X_STEPS`` and two seeds as one population, and their
    reports with ``--route both`` (route A within ``EVAL_ADE_TOL`` of plain on
    every row), every run with exact launches.
+20. (run before 7's line) the weight gradient of the float32 dense
+   products (``csrc/wgrad.cu``, ``ops/dense_grad.py``) at the shapes of
+   the training paths that take it (``WGRAD_CASES``: config 3's population
+   of 5 lanes, the experiments' hidden 128 and LSTM populations, and the
+   unbatched op at one lane's shapes), against the float64 product (within
+   ``WGRAD_TOL`` of its largest entry) and to the bit from call to call,
+   with device times of the kernel, the plain version (a product a lane)
+   and cuBLAS's one call for all lanes (``bmm``, ``mm`` for one lane) as
+   ``library_ms``, its bound, split and occupancy.  Every launch check of
+   phases 4-19 counts ``weight_grad`` and ``weight_grad_lanes`` too: a
+   population step ``WGRAD_STEP`` of ``weight_grad_lanes``, a sequential
+   step none; the kernels line's ``weight_grad_lanes`` row counts the main
+   path's populations.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -312,6 +325,26 @@ BF16_ADE_TOL = 1e-3
 # fork on a rounding flip, so later losses are those of two nearby models
 # (1.9e-4 apart at step 3 of variety on an H100).
 BF16_LATER_LOSS_RTOL = 1e-3
+# Phase 20: (label, lanes, rows a lane, din, dout) of the weight gradients the
+# training paths take to csrc/wgrad.cu: config 3's population (5 lanes, the
+# variety rollout's 8 x 32 x 32 rows and the encoder's 32 x 32), the
+# experiments' hidden-128 population (3 lanes, 8 x 16 x 64 and 16 x 64 rows)
+# and LSTM (64 x 256), and the unbatched op at one lane's shapes (a sequential
+# step keeps cuBLAS's mm, as fast there).  The error is of the float64
+# product's largest entry: float32 sums of up to 8,192 products.
+WGRAD_CASES = (("config3 gru", 5, 8192, 64, 192), ("config3 gat", 5, 8192, 64, 64),
+               ("config3 head", 5, 8192, 64, 30), ("config3 embed", 5, 8192, 2, 64),
+               ("config3 encoder gru", 5, 1024, 64, 192), ("config3 encoder gat", 5, 1024, 64, 64),
+               ("hidden 128 gru", 3, 8192, 128, 384), ("hidden 128 gat", 3, 8192, 128, 128),
+               ("hidden 128 encoder gru", 3, 1024, 128, 384), ("lstm", 5, 8192, 64, 256),
+               ("one lane gru", 1, 8192, 64, 192), ("one lane encoder gru", 1, 1024, 64, 192))
+WGRAD_TOL = 1e-5
+# ``weight_grad_lanes`` launches a population step makes (csrc/wgrad.cu: one a
+# float32 dense product of the lanes that records a gradient; a sequential
+# step makes none): the GRU's TO encoder steps (embed, wx, wh, the GAT's wv and
+# wo), bridge_h, the decoder's TP heads and the other five products of its
+# first TP - 1 steps (the last step's update feeds no loss).
+WGRAD_STEP = 5 * TO + 1 + TP + 5 * (TP - 1)
 
 
 def log(msg: str) -> None:
@@ -1546,7 +1579,8 @@ def scale_out_phase(torch, dev, card, cfg, counted, zero, results) -> None:
     xy_all, mask_all = train_bench.fake_batch(8 * TB, N, TO + TP, dev, seed=7)
     idx = np.stack([np.stack([np.random.default_rng([s, k]).permutation(8 * TB)[:TB]
                               for s in POP_SEEDS]) for k in range(POP_STEPS)])  # (steps, S, B)
-    per_pop_step = {**zero, "fused_gat": TO + TP, "fused_gat_lanes": TO + TP}
+    per_pop_step = {**zero, "fused_gat": TO + TP, "fused_gat_lanes": TO + TP,
+                    "weight_grad_lanes": WGRAD_STEP}
     with torch.enable_grad():
         params = popm.stack_lanes(states, dev)
         model = popm.lane_model(pcfg, dev)
@@ -1834,7 +1868,8 @@ def protocol_phase(torch, dev, card, counted, zero) -> None:
         capture = (tr.CAPTURE_WARMUP + 1) * (TO + TP)
         want = {**zero, "fused_gat_lanes": len(SCENES) * capture,
                 "fused_gat": len(SCENES) * capture + sum(
-                    len(LOO_SEEDS) * math.ceil(n / 16) * per_batch for n in n_test.values())}
+                    len(LOO_SEEDS) * math.ceil(n / 16) * per_batch for n in n_test.values()),
+                "weight_grad_lanes": len(SCENES) * (tr.CAPTURE_WARMUP + 1) * WGRAD_STEP}
         check(counts == want, f"train --scene all: launches {counts}, want {want}")
         table = out[out.index("\nleave-one-out (config 4"):].strip().splitlines()
         rows = [r for r in table if r.split()[0] in SCENES + ("AVG",)]
@@ -2487,7 +2522,8 @@ def config3_phase(torch, dev, card, counted, zero) -> None:
     pcfg = cfg.replace(model=pallas_cfg)
     idx = np.stack([np.stack([np.random.default_rng([s, k]).permutation(C3_B)[:TB]
                               for s in POP_SEEDS]) for k in range(2 * C3_POP_M)])
-    per_pop = {**zero, "fused_gat": TO + TP, "fused_gat_lanes": TO + TP}
+    per_pop = {**zero, "fused_gat": TO + TP, "fused_gat_lanes": TO + TP,
+               "weight_grad_lanes": WGRAD_STEP}
     with torch.enable_grad():
         params = popm.stack_lanes(states, dev)
         ema = {k_: x.detach().clone() for k_, x in params.items()}
@@ -2516,8 +2552,9 @@ def config3_phase(torch, dev, card, counted, zero) -> None:
               f"config3 population step 1 vs sequential steps: rel {rels}")
     log(f"config3 population ({S} lanes x B={TB}, variety n={t.variety_n}, graphed M={C3_POP_M})"
         f": step-1 loss rel to each seed's sequential step {max(rels):.2e} (tol "
-        f"{TRAIN_LOSS_RTOL}); {per_pop['fused_gat_lanes']} fused_gat_lanes a step; a replayed "
-        f"step {pop_ms:.2f} ms; {card}")
+        f"{TRAIN_LOSS_RTOL}); {per_pop['fused_gat_lanes']} fused_gat_lanes and "
+        f"{per_pop['weight_grad_lanes']} weight_grad_lanes a step; a replayed step "
+        f"{pop_ms:.2f} ms; {card}")
 
     # e. the yardstick, shortened to a smoke.
     root = Path(__file__).resolve().parent
@@ -2538,7 +2575,8 @@ def config3_phase(torch, dev, card, counted, zero) -> None:
                  for m in ("ade", "fde"))
     check(finite and res["routes_agree"] and max(res["route_gap_m"].values()) <= EVAL_ADE_TOL,
           f"config3 yardstick smoke: finite {finite}, route gaps {res['route_gap_m']}")
-    check(all(counts[k_] > 0 for k_ in ("fused_gat", "fused_gat_lanes", "fused_decode")),
+    check(all(counts[k_] > 0 for k_ in ("fused_gat", "fused_gat_lanes", "fused_decode",
+                                        "weight_grad_lanes")),
           f"config3 yardstick smoke: launches {counts}")
     log(f"config3 yardstick smoke ({C3_SMOKE_STEPS} steps, {C3_SMOKE_FRAMES} frames a scene, "
         f"{len(res['seeds'])} seeds; not the yardstick): training {res['train_seconds']:.1f} s, "
@@ -2697,7 +2735,8 @@ def experiments_phase(torch, dev, card, counted, zero) -> None:
         S = len(X_SEEDS)
         capture = (tr.CAPTURE_WARMUP + 1) * (TO + TP)  # a chunk counts its warm-up and capture
         per_eval = S * math.ceil(n_test / 16) * (TO + 2 * TP)  # each seed's final evaluation
-        want = {**zero, "fused_gat_lanes": capture, "fused_gat": capture + per_eval}
+        want = {**zero, "fused_gat_lanes": capture, "fused_gat": capture + per_eval,
+                "weight_grad_lanes": (tr.CAPTURE_WARMUP + 1) * WGRAD_STEP}
         for name, script, argv in (("social arm C1", torch_social_ablation, ["--arm", "C1"]),
                                    ("dense cell A", torch_dense_sweep, ["--cell", "A"])):
             t0 = time.perf_counter()
@@ -2750,6 +2789,64 @@ def experiments_phase(torch, dev, card, counted, zero) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def wgrad_phase(torch, dev, card) -> dict:
+    """Phase 20: ``weight_grad_lanes`` (``weight_grad`` for one lane) at each
+    of ``WGRAD_CASES`` against the float64 product and against itself, with
+    device times of the kernel, the plain version and cuBLAS's batched
+    product (``library_ms``), its bound, split and occupancy; -> the
+    kernels line's row, at config 3's largest product."""
+    from mmtraj_torch.ops import _build, dense_grad
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for label, S, R, din, dout in WGRAD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(R + din * dout)
+        x = torch.randn((S, R, din), generator=gen, device=dev)
+        g = torch.randn((S, R, dout), generator=gen, device=dev)
+        if S == 1:
+            def kernel(x=x, g=g):
+                return dense_grad.weight_grad(x[0], g[0])[None]
+
+            def library(x=x, g=g):
+                return torch.mm(x[0].T, g[0])[None]
+        else:
+            def kernel(x=x, g=g):
+                return dense_grad.weight_grad_lanes(x, g)
+
+            def library(x=x, g=g):
+                return torch.bmm(x.transpose(1, 2), g)
+
+        def plain(x=x, g=g):
+            return torch.stack([dense_grad.weight_grad_math(x[s], g[s]) for s in range(S)])
+
+        out, again = kernel(), kernel()
+        want = x.double().transpose(1, 2) @ g.double()
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (out.double() - want).abs().max().item() / scale
+        lib_err = (library().double() - want).abs().max().item() / scale
+        check(err <= WGRAD_TOL and torch.equal(out, again),
+              f"wgrad {label} {(S, R, din, dout)}: error {err} of the largest entry, "
+              f"repeats to the bit {torch.equal(out, again)}")
+        tm, tn, splits, rows_a_split = dense_grad.plan(S, R, din, dout, sms)
+        flops, nbytes = 2.0 * S * R * din * dout, 4.0 * S * (R * (din + dout) + din * dout)
+        bound_ms, bound_by = bound(flops, nbytes)
+        r = dict(max_abs_err=err, library_err=lib_err, ms=time_ms(torch, kernel),
+                 plain_ms=time_ms(torch, plain), library_ms=time_ms(torch, library),
+                 cost=(flops, nbytes, flops), bound_ms=bound_ms, bound_by=bound_by,
+                 tile=(tm, tn), splits=splits, blocks=math.ceil(din / tm) * math.ceil(dout / tn)
+                 * S * splits, occupancy=_build.occupancy("wgrad", tm, tn))
+        rows[label] = r
+        log(f"wgrad {label} (S={S}, R={R}, {din} x {dout}): error {err:.3e} of the largest "
+            f"entry (cuBLAS float32 {lib_err:.3e}), same to the bit; kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}); tile {tm} x {tn}, {splits} splits of "
+            f"{rows_a_split} rows, {r['blocks']} blocks; {json.dumps(r['occupancy'])}; {card}")
+    slower = [k for k, r in rows.items() if r["ms"] > r["library_ms"]]
+    log(f"wgrad: slower than cuBLAS at {slower or 'no shape'}")
+    return rows["config3 gru"]
+
+
 def main() -> int:
     import torch
 
@@ -2764,7 +2861,7 @@ def main() -> int:
     from mmtraj_torch.graph.adjacency import proximity_adjacency
     from mmtraj_torch.metrics import best_of_k
     from mmtraj_torch.models.forecaster import Forecaster
-    from mmtraj_torch.ops import _build, fused_attend, fused_decoder, fused_gat
+    from mmtraj_torch.ops import _build, fused_attend, fused_decoder, fused_gat, launch_counters
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2925,9 +3022,7 @@ def main() -> int:
     check_gat("dense crowd's encoder state", (carry_c.h.contiguous(), att_c, *gat_weights))
 
     # -- 4./5. the routes end to end, through Forecaster.rollout_k -----------------
-    counters = {"attend": fused_attend.attend, "attend_packed": fused_attend.attend_packed,
-                "fused_gat": fused_gat.fused_gat, "fused_gat_lanes": fused_gat.fused_gat_lanes,
-                "fused_decode": fused_decoder.fused_decode}
+    counters = launch_counters()
     launches = dict.fromkeys(counters, 0)  # summed over the main-path runs
 
     def reset_counts():
@@ -3212,6 +3307,11 @@ def main() -> int:
     experiments_phase(torch, dev, card, counted, dict.fromkeys(counters, 0))
     log(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
+    # -- 20. the weight gradient of the dense products ------------------------------------------
+    t0 = time.perf_counter()
+    results["weight_grad_lanes"] = wgrad_phase(torch, dev, card)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
     # -- 7. the kernels line ----------------------------------------------------
     sources = {
         "attend": ("mmtraj_torch/csrc/attend.cu", "mmtraj/ops/fused_attend.py:212"),
@@ -3219,6 +3319,7 @@ def main() -> int:
         "fused_gat": ("mmtraj_torch/csrc/gat.cu", "mmtraj/ops/fused_gat.py:150"),
         "fused_gat_lanes": ("mmtraj_torch/csrc/gat.cu", "mmtraj/ops/fused_gat.py:150"),
         "fused_decode": ("mmtraj_torch/csrc/decoder.cu", "mmtraj/ops/fused_decoder.py:208"),
+        "weight_grad_lanes": ("mmtraj_torch/csrc/wgrad.cu", None),  # XLA's product in JAX
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -3228,7 +3329,7 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "tc_bound_ms": tc_bound(*r["cost"]),
-                        "library_ms": None, **r["occupancy"]})
+                        "library_ms": r.get("library_ms"), **r["occupancy"]})
     missing = [k["name"] for k in kernels if not k["launches"]]
     check(not missing, f"kernels never launched on their path: {missing}")
     print(card)

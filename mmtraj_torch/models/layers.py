@@ -25,6 +25,8 @@ from typing import Callable, Dict, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from mmtraj_torch.ops.dense_grad import dense_product
+
 Params = Dict[str, object]
 
 NEG_INF = -1e9
@@ -127,13 +129,15 @@ def bf16_weight(w: torch.Tensor) -> Bf16Weight:
 
 
 def matmul(x: torch.Tensor, w, dtype=None) -> torch.Tensor:
-    """``x @ w`` in float32; under ``dtype=torch.bfloat16`` with both operands
-    rounded to bf16 first (see the module docstring).  ``x`` may come in as a
-    bf16 tensor already, where one rounded activation feeds several products
-    (the JAX package's single ``x.astype(bf16)``); ``w`` may be a
-    ``Bf16Weight``."""
+    """``x @ w`` in float32, w's gradient (where one is recorded for a
+    population's lanes) from the weight-gradient kernel
+    (``ops.dense_grad.dense_product``); under
+    ``dtype=torch.bfloat16`` with both operands rounded to bf16 first (see
+    the module docstring).  ``x`` may come in as a bf16 tensor already, where
+    one rounded activation feeds several products (the JAX package's single
+    ``x.astype(bf16)``); ``w`` may be a ``Bf16Weight``."""
     if dtype is None:
-        return x @ w
+        return dense_product(x, w)
     if dtype != torch.bfloat16:
         raise ValueError(f"compute dtype {dtype} is not bfloat16 or None (float32)")
     xb = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)

@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from mmtraj_torch.ops import _build
+from mmtraj_torch.ops.dense_grad import dense_product
 from mmtraj_torch.ops.fused_attend import MAX_N, _math_vjp, _wants_grad, attend_math
 
 
@@ -49,11 +50,14 @@ def _block_diag(a: torch.Tensor) -> torch.Tensor:
 
 def gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tensor:
     """h (B, N, D); attend (B, N, N) 0/1 float; wv (D, H*dh); a_src/a_dst
-    (H, dh); wo (H*dh, Dout); bo (Dout,) -> (B, N, Dout) float32."""
-    v = h @ wv
+    (H, dh); wo (H*dh, Dout); bo (Dout,) -> (B, N, Dout) float32.  For a
+    population's lanes the two weight products take their weights' gradient
+    from the weight-gradient kernel (``dense_product``), in ``_FusedGat``'s
+    backward too."""
+    v = dense_product(h, wv)
     s_src = v @ _block_diag(a_src)
     s_dst = v @ _block_diag(a_dst)
-    return attend_math(v, s_src, s_dst, attend, num_heads) @ wo + bo
+    return dense_product(attend_math(v, s_src, s_dst, attend, num_heads), wo) + bo
 
 
 @torch.library.custom_op("mmtraj::fused_gat", mutates_args=(), device_types="cpu")

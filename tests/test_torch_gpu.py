@@ -14,6 +14,7 @@ graph.
 """
 
 import dataclasses
+import math
 import sys
 from pathlib import Path
 
@@ -24,7 +25,7 @@ import torch
 from mmtraj_torch.config import ModelConfig
 from mmtraj_torch.data.transforms import NormStats
 from mmtraj_torch.models.forecaster import Forecaster
-from mmtraj_torch.ops import fused_attend, fused_decoder, fused_gat
+from mmtraj_torch.ops import dense_grad, fused_attend, fused_decoder, fused_gat
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import kernel_inputs  # noqa: E402  (the inputs tools/kernel_times.py times)
@@ -566,3 +567,121 @@ def test_graphed_chunk_records_its_spans(cuda):
             assert spans[x.parent].name == "train.chunk"
             assert sorted(d.name for d in spans if d.parent == i) == ["train.draw",
                                                                      "train.replay"]
+
+
+# -- the weight gradient of the dense products (csrc/wgrad.cu) --------------------------
+
+def _wgrad_inputs(device, *shape_x_g):
+    gen = torch.Generator(device=device).manual_seed(sum(map(sum, shape_x_g)))
+    return [torch.randn(s, generator=gen, device=device) for s in shape_x_g]
+
+
+@pytest.mark.parametrize("din, dout", [(2, 64), (64, 192), (64, 64), (64, 30)])
+@pytest.mark.parametrize("r", [1024, 8192])
+@pytest.mark.parametrize("s", [1, 5])
+def test_weight_grad_lanes_matches_plain_and_repeats_to_the_bit(cuda, s, r, din, dout):
+    """Config 3's shapes: within 1e-5 of the float64 product's largest entry
+    (float32 sums of up to 8,192 products), one launch a call, and a second
+    call equal to the first to the bit (the splits are summed in a fixed
+    order)."""
+    x, g = _wgrad_inputs(cuda, (s, r, din), (s, r, dout))
+    before = dense_grad.weight_grad_lanes.launches
+    got = dense_grad.weight_grad_lanes(x, g)
+    again = dense_grad.weight_grad_lanes(x, g)
+    torch.cuda.synchronize()
+    assert dense_grad.weight_grad_lanes.launches == before + 2
+    want = x.double().transpose(1, 2) @ g.double()
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows, din, dout", [((3, 333), 6, 30), ((999,), 64, 192),
+                                             ((7, 41), 128, 384), ((2, 5), 64, 64)])
+def test_weight_grad_on_ragged_rows_and_unaligned_inputs(cuda, rows, din, dout):
+    """Rows that are no multiple of a stage, x starting 4 bytes past an
+    aligned address (the 4-byte copies), and a few rows (one split)."""
+    x, g = _wgrad_inputs(cuda, rows + (din + 1,), rows + (dout,))
+    x = x.flatten()[1:1 + math.prod(rows) * din].reshape(rows + (din,))
+    before = dense_grad.weight_grad.launches
+    got = dense_grad.weight_grad(x, g)
+    torch.cuda.synchronize()
+    assert dense_grad.weight_grad.launches == before + 1
+    want = dense_grad.weight_grad_math(x.double(), g.double())
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+def test_dense_product_under_vmap_matches_autograd_on_the_card(cuda):
+    """5 lanes with their own weights: one ``weight_grad_lanes`` for the
+    weights' gradient, equal to autograd of ``x @ w`` lane by lane."""
+    x0, w0 = _wgrad_inputs(cuda, (5, 8, 32, 64), (5, 64, 192))
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+
+    def loss(product):
+        return lambda w_, x_: torch.tanh(product(x_, w_)).square().sum()
+
+    before = dense_grad.weight_grad_lanes.launches
+    torch.func.vmap(loss(dense_grad.dense_product))(w, x).sum().backward()
+    torch.cuda.synchronize()
+    assert dense_grad.weight_grad_lanes.launches == before + 1
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    sum(loss(torch.matmul)(wr[s], xr[s]) for s in range(5)).backward()
+    for a, b in ((x.grad, xr.grad), (w.grad, wr.grad)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("in_dims", [(None, 0), (0, None)], ids=["shared x", "shared g"])
+def test_weight_grad_vmap_expands_a_shared_operand_on_the_card(cuda, in_dims):
+    """An operand every lane shares (the zero initial state) is expanded to
+    the lanes: one ``weight_grad_lanes`` launch, equal to the float64
+    product lane by lane."""
+    shapes = [(8, 32, 64), (8, 32, 192)]
+    shapes = [sh if d is None else (5,) + sh for sh, d in zip(shapes, in_dims)]
+    x, g = _wgrad_inputs(cuda, *shapes)
+    before = dense_grad.weight_grad_lanes.launches
+    got = torch.func.vmap(dense_grad.weight_grad, in_dims=in_dims)(x, g)
+    torch.cuda.synchronize()
+    assert dense_grad.weight_grad_lanes.launches == before + 1
+    want = torch.stack([dense_grad.weight_grad_math(
+        (x if in_dims[0] is None else x[s]).double(), (g if in_dims[1] is None else g[s]).double())
+        for s in range(5)])
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+def test_graphed_population_step_launches_the_weight_gradient_kernel(cuda):
+    """Config 3 with the recipe's variety loss in a population of 3 lanes,
+    chunks of 3 replayed from a CUDA graph: the first chunk's warm-up steps
+    and capture each make a step's launches, the replays none.  A step: every
+    product of the encoder's TO steps (the first step's wh with the zero
+    state every lane shares) and bridge_h, the rollout's TP heads and the
+    other five products of its first TP - 1 steps, all on
+    ``weight_grad_lanes``."""
+    from mmtraj_torch import config, population, train
+
+    base = config.config3()
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, use_pallas=True, adjacency_radius=2.0, dropout=0.1),
+        train=dataclasses.replace(base.train, loss="variety", variety_n=8, augment_rotate=True,
+                                  augment_flip=True))
+    to, tp, n, t = cfg.data.obs_len, cfg.data.pred_len, cfg.data.n_max, cfg.train
+    seeds = [0, 1, 2]
+    params = population.stack_lanes([Forecaster(cfg.model, to, tp, device="cpu",
+                                                generator=torch.Generator().manual_seed(s))
+                                     .state_dict() for s in seeds], cuda)
+    gen = torch.Generator().manual_seed(0)
+    xy = torch.cumsum(torch.randn((16, n, to + tp, 2), generator=gen) * 0.3, 2).to(cuda)
+    mask = torch.rand((16, n), generator=gen) < 0.5
+    mask[:, 0] = True
+    pop = population.make_population_step(
+        population.lane_model(cfg, cuda), params, train.Optimizer(params, cfg, lanes=True),
+        NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32)), seeds, None, 0.0,
+        t.augment_rotate, t.augment_flip, t.loss, t.variety_n)
+    rng = np.random.default_rng(0)
+    idx = np.stack([np.stack([rng.permutation(16)[:4] for _ in seeds]) for _ in range(6)])
+    per_step = {"weight_grad_lanes": 5 * to + 1 + tp + 5 * (tp - 1), "weight_grad": 0}
+    for k, steps in ((0, train.CAPTURE_WARMUP + 1), (1, 0)):
+        before = {name: getattr(dense_grad, name).launches for name in per_step}
+        losses = pop(xy, mask.to(cuda), idx[3 * k:3 * k + 3], range(3 * k, 3 * k + 3))
+        torch.cuda.synchronize()
+        assert torch.isfinite(losses).all()
+        assert {name: getattr(dense_grad, name).launches - before[name]
+                for name in per_step} == {name: steps * c for name, c in per_step.items()}
