@@ -247,6 +247,7 @@ import numpy as np
 
 B, N, TO, TP, K = 25, 64, 8, 12, 20
 CB, CNS, CITERS = 12, (128, 256), 10  # dense crowd: windows, agent counts, benchmark iters
+ATTN_B = 128  # the attention encoder's training batch (config4-attn3): B·T = 1024 frame graphs
 SWEEP_NS, SWEEP_B, SWEEP_ITERS = (64, 128, 256), 512, 20  # the short op sweep
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
@@ -3020,6 +3021,15 @@ def main() -> int:
     att_c = with_self_loops(proximity_adjacency(xy_c[:, :, -1], mask_c,
                                                 cfg.model.adjacency_radius), mask_c)
     check_gat("dense crowd's encoder state", (carry_c.h.contiguous(), att_c, *gat_weights))
+    # and at the attention encoder's training shapes (config4-attn3): every observed frame of
+    # a batch of 128 windows of 64 agents one graph, (B·T, N, H) = (1024, 64, 64), 4 heads of 16.
+    xy_t, mask_t = rollout_bench.crowd_inputs(ATTN_B, N, TO, dev)
+    xy_f = xy_t.transpose(1, 2).reshape(ATTN_B * TO, N, 2)
+    mask_f = mask_t[:, None, :].expand(ATTN_B, TO, N).reshape(ATTN_B * TO, N)
+    att_f = with_self_loops(proximity_adjacency(xy_f, mask_f, cfg.model.adjacency_radius), mask_f)
+    x_f = torch.randn((ATTN_B * TO, N, cfg.model.hidden_dim), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5))
+    check_gat("attention encoder's frame graphs", (x_f, att_f, *gat_weights))
 
     # -- 4./5. the routes end to end, through Forecaster.rollout_k -----------------
     counters = launch_counters()

@@ -15,6 +15,10 @@ Under ``compute_dtype=torch.bfloat16`` the products' operands are rounded to
 bf16 (``layers.matmul``): the embedding, the projection, q, k, v, the
 attention output before ``wo``, the MLP and the GAT's input; scores, the
 softmax, the layer norms and the residual stream stay float32.
+
+Tracing (``utils/profiling``): spans ``attn.encode``, ``attn.layer`` and,
+over the backward, ``attn.encode_grad``; ``attn_layer.launches`` counts the
+blocks applied.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from mmtraj_torch.models.layers import (
     mlp,
     mlp_init,
 )
+from mmtraj_torch.utils.profiling import BackwardSpan, annotate, spans_on
 
 
 def attn_encoder_init(generator: torch.Generator, cfg) -> Params:
@@ -108,34 +113,17 @@ def _temporal_mhsa(p: Params, x: torch.Tensor, num_heads: int, dtype=None) -> to
     return matmul(out, p["wo"], dtype) + p["bo"]
 
 
-def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
-                mask: torch.Tensor, drop=None, train: bool = False,
-                compute_dtype=None) -> torch.Tensor:
-    """Encode an observation window -> (B, N, H) last-step features.
-
-    xy_obs (B, N, To, 2) absolute meters (the per-frame proximity graphs),
-    dxy_n (B, N, To, 2) normalized offsets (the content stream), mask (B, N).
-    ``drop``: the encoder's variational dropout masks {"emb": (B, N, E),
-    "gat": (B, N, H)}, broadcast over time: "emb" scales the embedding,
-    "gat" the GAT residual.  ``train`` marks a differentiated path, on which
-    "auto" keeps the plain attend chain.  Each layer is checkpointed per
-    ``cfg.remat`` where a graph is recorded.  ``compute_dtype``: the
-    products' operand dtype (None: float32); the result is float32."""
-    dt = compute_dtype
-    B, N, T, _ = xy_obs.shape
-    x = torch.relu(dense(params["embed"], dxy_n, dt))  # (B, N, T, E)
-    if drop is not None:
-        x = x * drop["emb"][:, :, None, :]
-    x = dense(params["proj"], x, dt)  # (B, N, T, H)
-    x = x + sinusoidal_positions(T, x.shape[-1], x.device)
-
-    if cfg.social:
-        # One adjacency per frame, all frames at once: fold T into the batch.
-        xy_flat = xy_obs.transpose(1, 2).reshape(B * T, N, 2)
-        mask_flat = mask[:, None, :].expand(B, T, N).reshape(B * T, N)
-        adj_flat = proximity_adjacency(xy_flat, mask_flat, cfg.adjacency_radius)
-
-    def layer_apply(lp, x):
+def attn_layer(lp: Params, x: torch.Tensor, cfg, adj_flat, mask_flat, drop, train: bool,
+               dt, layer: int) -> torch.Tensor:
+    """One pre-LN block (layer ``layer``) on x (B, N, T, H): x += causal
+    MHSA(LN1 x); x += GAT(LN2 x) over the (B·T, N, H) frame graphs
+    ``adj_flat``/``mask_flat`` where ``cfg.social``; x += MLP(LN3 x).  Each
+    application, a checkpoint's recomputation included, counts in
+    ``attn_layer.launches`` (no kernel launch: ``ops.launch_counters()``
+    leaves it out) and is an ``attn.layer`` span (``layer``)."""
+    attn_layer.launches += 1
+    with annotate("attn.layer", layer=layer):
+        B, N, T, _ = x.shape
         x = x + _temporal_mhsa(lp["attn"], layer_norm(lp["ln1"], x), cfg.num_heads, dt)
         if cfg.social:
             y_flat = layer_norm(lp["ln2"], x).transpose(1, 2).reshape(B * T, N, -1)
@@ -148,8 +136,57 @@ def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
             x = x + g
         return x + mlp(lp["mlp"], layer_norm(lp["ln3"], x), dt)
 
-    layer_apply = maybe_remat(cfg, layer_apply)
-    for i in range(cfg.attn_layers):
-        x = layer_apply(params["layers"][f"l{i}"], x)
-    feat = layer_norm(params["ln_out"], x[:, :, -1])
-    return torch.where(mask[..., None], feat, 0.0)
+
+attn_layer.launches = 0
+
+
+def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
+                mask: torch.Tensor, drop=None, train: bool = False,
+                compute_dtype=None) -> torch.Tensor:
+    """Encode an observation window -> (B, N, H) last-step features.
+
+    xy_obs (B, N, To, 2) absolute meters (the per-frame proximity graphs),
+    dxy_n (B, N, To, 2) normalized offsets (the content stream), mask (B, N).
+    ``drop``: the encoder's variational dropout masks {"emb": (B, N, E),
+    "gat": (B, N, H)}, broadcast over time: "emb" scales the embedding,
+    "gat" the GAT residual.  ``train`` marks a differentiated path, on which
+    "auto" keeps the plain attend chain.  Each layer is checkpointed per
+    ``cfg.remat`` where a graph is recorded.  ``compute_dtype``: the
+    products' operand dtype (None: float32); the result is float32.
+
+    Spans: ``attn.encode`` around the call, an ``attn.layer`` a block
+    (``attn_layer``) and, where a gradient is recorded, ``attn.encode_grad``
+    over the encoder's backward, from the readout's gradient to the
+    embedding's (``profiling.BackwardSpan``; blocks a checkpoint recomputes
+    run inside it)."""
+    with annotate("attn.encode"):
+        dt = compute_dtype
+        B, N, T, _ = xy_obs.shape
+        grad_span = None
+        embed = params["embed"]
+        if spans_on() and torch.is_grad_enabled():
+            grad_span = BackwardSpan("attn.encode_grad")
+            w, b = grad_span.closes(embed["w"], embed["b"])
+            embed = {"w": w, "b": b}
+        x = torch.relu(dense(embed, dxy_n, dt))  # (B, N, T, E)
+        if drop is not None:
+            x = x * drop["emb"][:, :, None, :]
+        x = dense(params["proj"], x, dt)  # (B, N, T, H)
+        x = x + sinusoidal_positions(T, x.shape[-1], x.device)
+
+        adj_flat = mask_flat = None
+        if cfg.social:
+            # One adjacency per frame, all frames at once: fold T into the batch.
+            xy_flat = xy_obs.transpose(1, 2).reshape(B * T, N, 2)
+            mask_flat = mask[:, None, :].expand(B, T, N).reshape(B * T, N)
+            adj_flat = proximity_adjacency(xy_flat, mask_flat, cfg.adjacency_radius)
+
+        layer_apply = maybe_remat(cfg, attn_layer)
+        for i in range(cfg.attn_layers):
+            x = layer_apply(params["layers"][f"l{i}"], x, cfg, adj_flat, mask_flat, drop, train,
+                            dt, i)
+        feat = layer_norm(params["ln_out"], x[:, :, -1])
+        feat = torch.where(mask[..., None], feat, 0.0)
+        if grad_span is not None:
+            (feat,) = grad_span.opens(feat)
+        return feat

@@ -4,7 +4,8 @@
 ``trace_ctx`` records the enclosed region, host and card, and writes a
 Chrome trace (``*.pt.trace.json``) under ``{out_dir}/profile``;
 ``annotate`` opens a program span, recorded only while a profiler runs
-(``spans()``, ``clear_spans()``); ``summarize_trace`` reads a trace
+(``spans()``, ``clear_spans()``), and ``BackwardSpan`` one over a stretch
+of the backward pass; ``summarize_trace`` reads a trace
 offline and totals its device events (``cli profile-stats``).  Debug aids:
 ``enable_nan_debugging`` raises on the first NaN that any op produces,
 forward or backward (slow: every op's output is checked on the host), and
@@ -26,6 +27,7 @@ from collections import defaultdict
 from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 from torch._C import _profiler as _c_profiler
 from torch.autograd import _profiler_enabled as _profiler_here
 from torch.autograd import profiler as _autograd_profiler
@@ -201,6 +203,62 @@ def clear_spans() -> None:
     global _kept
     with _lock:
         _kept = []
+
+
+def spans_on() -> bool:
+    """Whether ``annotate`` keeps spans now (a torch profiler runs): the one
+    flag read that code adding work for its spans alone checks first."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Edge(torch.autograd.Function):
+    """The identity on its tensors, whose backward calls ``edge()`` before it
+    passes the gradients on (a vmap rule is generated)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(edge, *ts):
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.edge = inputs[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.edge()
+        return (None, *grads)
+
+
+class BackwardSpan:
+    """A span named ``name`` over a stretch of the backward pass, on the
+    thread that runs it (autograd's device thread on the card): it opens
+    when the gradient of what ``opens`` returned arrives, and closes once
+    the gradients of what ``closes`` returned are done.  Put ``opens`` on
+    the stretch's outputs and ``closes`` on its first inputs that need a
+    gradient; each returns its tensors through an identity Function.  Work
+    the backward recomputes in between (a checkpoint's) falls inside the
+    span, with its own spans as children.  Build it only where ``spans_on()``
+    reads True: off, a caller adds nothing to the graph."""
+
+    def __init__(self, name: str):
+        self._name, self._span = name, None
+
+    def opens(self, *ts: torch.Tensor) -> tuple:
+        return _Edge.apply(self._open, *ts)
+
+    def closes(self, *ts: torch.Tensor) -> tuple:
+        return _Edge.apply(self._close, *ts)
+
+    def _open(self) -> None:
+        self._span = annotate(self._name)
+        self._span.__enter__()
+
+    def _close(self) -> None:
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+            self._span = None
 
 
 def _newest_trace(trace_dir: str) -> str:

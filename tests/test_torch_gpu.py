@@ -685,3 +685,21 @@ def test_graphed_population_step_launches_the_weight_gradient_kernel(cuda):
         assert torch.isfinite(losses).all()
         assert {name: getattr(dense_grad, name).launches - before[name]
                 for name in per_step} == {name: steps * c for name, c in per_step.items()}
+
+
+def test_attn3_graphed_training_matches_the_reference(cuda):
+    """``config4-attn3`` at its published widths (3 blocks, H 64, 4 heads of
+    16, N_max 64, B 128, NLL, remat "full") through the benchmark's
+    sequential cell: the eager step 0 and the graphed steps 1-2, each against
+    the plain reference's step from the program's own state, then one
+    replayed chunk of 50 steps with finite losses."""
+    import time
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from perfcells import harness
+    from perfcells.run import run_cell
+
+    spec = harness.load_cell("c4attn3-train")
+    result, checks = run_cell(spec, 2**31 + 21, 0.01, False, "cuda", time.perf_counter())
+    assert result["correct"] is True, checks.line()
+    assert result["attempted"] == spec["config"]["train"]["steps_per_dispatch"]
