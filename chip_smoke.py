@@ -218,6 +218,18 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    population step ``WGRAD_STEP`` of ``weight_grad_lanes``, a sequential
    step none; the kernels line's ``weight_grad_lanes`` row counts the main
    path's populations.
+21. (run before 7's line) the GAT's backward (``csrc/gat_grad.cu``,
+   ``fused_gat.fused_gat_grad``, ``_FusedGat``'s backward) at
+   ``kernel_inputs.GRAD_CASES`` (config4-attn3's frame graphs and decoder
+   graphs, config 3's population rollout folded into its graphs, N = 256,
+   one head of 128) against the float64 VJP of ``attend_math`` (each output within
+   ``GRAD_TOL`` of its largest entry, no more than ``GRAD_VS_PLAIN`` times
+   further from it than the float32 VJP) and to the bit from call to call,
+   with device times of the kernels and of the plain VJP, its bound and
+   occupancy.  Every launch check of phases 4-19 counts ``fused_gat_grad``
+   too: ``GRAD_STEP`` a ``use_pallas`` step of the rnn encoder, one a
+   ``_FusedGat`` backward; the kernels line's ``fused_gat_grad`` row counts
+   the training paths' calls.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -346,6 +358,18 @@ WGRAD_TOL = 1e-5
 # wo), bridge_h, the decoder's TP heads and the other five products of its
 # first TP - 1 steps (the last step's update feeds no loss).
 WGRAD_STEP = 5 * TO + 1 + TP + 5 * (TP - 1)
+# ``fused_gat_grad`` calls a ``use_pallas`` training step makes (one a
+# ``_FusedGat`` backward; remat's recomputation runs the forward alone): the
+# rnn encoder's TO GATs and the decoder's first TP - 1 (the last step's GAT
+# feeds no loss); the attention encoder's L layers take the encoder's place.
+GRAD_STEP = TO + TP - 1
+# Phase 21 (the GAT backward at kernel_inputs.GRAD_CASES): each output within
+# GRAD_TOL of its largest entry of the float64 VJP, and no more than
+# GRAD_VS_PLAIN times further from it than the float32 VJP (the gradients of a
+# float32 chain, whatever the kernel sums in), an error under float32's
+# epsilon counted as that epsilon.
+GRAD_TOL = 1e-5
+GRAD_VS_PLAIN = 4.0
 
 
 def log(msg: str) -> None:
@@ -416,6 +440,35 @@ def gat_cost(b, n, d, hd, h, dout):
     flops = products + b * (4 * n * hd + 7 * h * n * n + n * hd + n * dout)
     weights = d * hd + 2 * hd + hd * dout + dout
     nbytes = 4 * (b * n * d + b * n * n + b * n * dout + weights)
+    return flops, nbytes, products
+
+
+def faithful(torch, got, plain, wide) -> float:
+    """The largest error of the tensors ``got`` against the float64 ``wide``,
+    each over its largest entry; raises unless each is within GRAD_TOL and no
+    more than GRAD_VS_PLAIN times the float32 ``plain``'s error (an error
+    under float32's epsilon counted as that epsilon)."""
+    eps = float(np.finfo(np.float32).eps)
+    errs = []
+    for g, p_, w in zip(got, plain, wide):
+        scale = w.abs().max().item()
+        err = (g.double() - w).abs().max().item() / scale
+        plain_err = (p_.double() - w).abs().max().item() / scale
+        check(err <= GRAD_TOL and err <= GRAD_VS_PLAIN * max(plain_err, eps),
+              f"error {err} of the float64 result's largest entry (float32 plain {plain_err})")
+        errs.append(err)
+    return max(errs)
+
+
+def grad_cost(b, n, hd, h):
+    """The GAT backward's attend chain: v, d_agg, the two score vectors and
+    the tile read once, agg, dv and the two score gradients written once;
+    per graph the products agg = alpha v, dalpha = d_agg v^T and dv =
+    alpha^T d_agg (2 N^2 HD each) and about 16 H N^2 for the chain and its
+    gradient.  -> (flops, bytes, product flops)."""
+    products = b * 3 * 2 * n * n * hd
+    flops = products + b * 16 * h * n * n
+    nbytes = 4 * (4 * b * n * hd + 4 * b * n * h + b * n * n)
     return flops, nbytes, products
 
 
@@ -695,23 +748,30 @@ def training_phase(torch, dev, card, cfg, counted, zero) -> None:
                 out_k, out_p = run(kernel, leaves), run(plain, leaves)
                 g_k = torch.autograd.grad(out_k, leaves, up)
                 g_p = torch.autograd.grad(out_p, leaves, up)
+                wide = [x.detach().double().requires_grad_() for x in leaves]
+                g_w = torch.autograd.grad(run(plain, wide), wide, up.double())
             torch.cuda.synchronize()
             err = (out_k - out_p).abs().max().item()
             check(torch.allclose(out_k, out_p, atol=KERNEL_TOL, rtol=KERNEL_TOL),
                   f"{name} Function at B={b}: forward err {err}")
-            g_err = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
-                        for a, c in zip(g_k, g_p))
-            check(all(torch.allclose(a, c, atol=KERNEL_TOL, rtol=KERNEL_TOL)
-                      for a, c in zip(g_k, g_p)), f"{name} Function at B={b}: gradients {g_err}")
+            if name == "fused_gat":  # the backward kernel: held to float64 (GRAD_TOL)
+                g_err = faithful(torch, g_k, g_p, g_w)
+            else:
+                g_err = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+                            for a, c in zip(g_k, g_p))
+                check(all(torch.allclose(a, c, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+                          for a, c in zip(g_k, g_p)),
+                      f"{name} Function at B={b}: gradients {g_err}")
             log(f"{name} autograd Function ({b}, {N}, 64): forward max abs err {err:.3e}, "
                 f"gradients of {len(leaves)} inputs within {g_err:.3e} of their largest "
-                f"(tol {KERNEL_TOL})")
+                f"(tol {GRAD_TOL if name == 'fused_gat' else KERNEL_TOL})")
 
     # b. Three steps of each loss, use_pallas against plain, same parameters and draws.
     xy, mask = train_bench.fake_batch(TB, N, TO + TP, dev)
     stats = NormStats(np.zeros(2, np.float32), np.ones(2, np.float32))
     lr = cfg.train.lr
     per_step = {"nll": 2 * (TO + TP), "variety": 2 * (TO + TP), "hybrid": 4 * (TO + TP)}
+    grad_calls = {"nll": GRAD_STEP, "variety": GRAD_STEP, "hybrid": 2 * GRAD_STEP}
 
     def train_run(model_cfg, loss_mode, kernel=None):
         model = Forecaster(model_cfg, TO, TP, device=dev, state=state)
@@ -724,6 +784,8 @@ def training_phase(torch, dev, card, cfg, counted, zero) -> None:
             else:
                 loss, counts = counted(lambda: step(xy, mask, s))
                 want = {**zero, kernel: per_step[loss_mode]}
+                if kernel == "fused_gat":
+                    want["fused_gat_grad"] = grad_calls[loss_mode]
                 check(counts == want, f"train {loss_mode} step {s}: launches {counts}, want {want}")
             losses.append(float(loss))
             if s == 0:
@@ -771,7 +833,7 @@ def training_phase(torch, dev, card, cfg, counted, zero) -> None:
                                       ckpt_every=FIT_STEPS // 2, ema_decay=0.99, k_samples=K))
         n_test = len(load_scene_windows(str(EVAL_DATA), "univ", TO, TP))
         want_fit = {**zero, "fused_gat": FIT_STEPS * per_step["nll"]
-                    + math.ceil(n_test / TB) * (TO + 2 * TP)}
+                    + math.ceil(n_test / TB) * (TO + 2 * TP), "fused_gat_grad": FIT_STEPS * GRAD_STEP}
         tmp = Path(tempfile.mkdtemp(prefix="tmp_fit_", dir=Path(__file__).resolve().parent))
         try:
             def fit(c, resume=False):
@@ -876,7 +938,8 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
             for use_pallas in (False, True):
                 mc = dataclasses.replace(cfg.model, use_pallas=use_pallas)
                 c = cfg.replace(model=mc)
-                want = {**zero, "fused_gat": per_step if use_pallas else 0}
+                want = {**zero, "fused_gat": per_step if use_pallas else 0,
+                        "fused_gat_grad": GRAD_STEP if use_pallas else 0}
 
                 def models():
                     m = Forecaster(mc, TO, TP, device=dev, state=state)
@@ -931,7 +994,8 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
                                   steps_per_dispatch=M))
     n_test = len(load_scene_windows(str(EVAL_DATA), "univ", TO, TP))
     want_fit = {**zero, "fused_gat": (tr.CAPTURE_WARMUP + 1) * per_step
-                + math.ceil(n_test / TB) * (TO + 2 * TP)}
+                + math.ceil(n_test / TB) * (TO + 2 * TP),
+                "fused_gat_grad": (tr.CAPTURE_WARMUP + 1) * GRAD_STEP}
     tmp = Path(tempfile.mkdtemp(prefix="tmp_fit_", dir=Path(__file__).resolve().parent))
     try:
         def fit(c, resume=False):
@@ -991,14 +1055,14 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
     attn = dataclasses.replace(cfg.model, encoder="attn")
     attn_state = init_params(attn, torch.Generator().manual_seed(0))
 
-    def steps(model_cfg, st, loss_mode="nll", kernel_calls=None):
+    def steps(model_cfg, st, loss_mode="nll", kernel_calls=None, grad_calls=None):
         model = Forecaster(model_cfg, TO, TP, device=dev, state=st)
         step = tr.make_train_step(model, tr.make_optimizer(cfg.replace(model=model_cfg), model),
                                   stats, loss_mode=loss_mode, variety_n=VARIETY_N)
         losses, grads = [], None
         for s in range(TRAIN_STEPS):
             loss, counts = counted(lambda: step(xy, mask, s))
-            want = {**zero, "fused_gat": kernel_calls or 0}
+            want = {**zero, "fused_gat": kernel_calls or 0, "fused_gat_grad": grad_calls or 0}
             check(counts == want, f"{model_cfg.encoder}/{model_cfg.cell} step {s}: launches "
                                   f"{counts}, want {want}")
             losses.append(float(loss))
@@ -1011,7 +1075,7 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
             lp, _, pp, _ = steps(attn, attn_state, loss_mode)
             calls = 2 * (attn.attn_layers + TP)
             lk, _, pk, _ = steps(dataclasses.replace(attn, use_pallas=True), attn_state, loss_mode,
-                                 calls)
+                                 calls, attn.attn_layers + TP - 1)
             rel, dmax = compare(f"attn {loss_mode}", lk, lp, pk, pp, ATTN_LATER_LOSS_RTOL)
             log(f"attn encoder training {loss_mode} (B={TB}, N={N}, {TRAIN_STEPS} steps): "
                 f"use_pallas vs plain losses {lk} vs {lp}, within {rel:.2e} relative; "
@@ -1026,7 +1090,8 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
     with torch.enable_grad():
         for name, (remat, extra) in policies.items():
             mc = dataclasses.replace(cfg.model, use_pallas=True, remat=remat, **extra)
-            _, grads[name], _, _ = steps(mc, state, "nll", per_step if remat else TO + TP)
+            _, grads[name], _, _ = steps(mc, state, "nll", per_step if remat else TO + TP,
+                                         GRAD_STEP)
         for name in ("off", "dots", "dots_no_batch"):
             g_rel = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
                         for a, c in zip(grads[name], grads["full"]))
@@ -1050,7 +1115,7 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
     with torch.enable_grad():
         lp, _, pp, _ = steps(lstm, lstm_state)
         lk, _, pk, model = steps(dataclasses.replace(lstm, use_pallas=True), lstm_state, "nll",
-                                 per_step)
+                                 per_step, GRAD_STEP)
     rel, dmax = compare("lstm nll", lk, lp, pk, pp)
     plain = Forecaster(lstm, TO, TP, device=dev, state=model.state_dict())
     roll, counts = counted(lambda: model.rollout_k(xy[:, :, :TO], mask, stats, K,
@@ -1251,7 +1316,8 @@ def bf16_phase(torch, dev, card, cfg, plain_cfg, route_a, route_b, state, stats,
                 losses = []
                 for s in range(TRAIN_STEPS):
                     loss, c = counted(lambda: step(xy, tmask, s))
-                    w = {**zero, "fused_gat": per_step if use_pallas else 0}
+                    w = {**zero, "fused_gat": per_step if use_pallas else 0,
+                         "fused_gat_grad": GRAD_STEP if use_pallas else 0}
                     check(c == w, f"bf16 train {loss_mode} step {s}: launches {c}, want {w}")
                     losses.append(float(loss))
                 runs[use_pallas] = (losses, flat(model))
@@ -1281,7 +1347,8 @@ def bf16_phase(torch, dev, card, cfg, plain_cfg, route_a, route_b, state, stats,
         mg = Forecaster(mc, TO, TP, device=dev, state=state)
         multi = tr.make_multi_train_step(mg, tr.make_optimizer(cfg.replace(model=mc), mg), tstats)
         graphed, c = counted(lambda: multi(xy_all, mask_all, idx, range(CHUNK_M)).tolist())
-        w = {**zero, "fused_gat": (tr.CAPTURE_WARMUP + 1) * per_step}
+        w = {**zero, "fused_gat": (tr.CAPTURE_WARMUP + 1) * per_step,
+             "fused_gat_grad": (tr.CAPTURE_WARMUP + 1) * GRAD_STEP}
         check(c == w, f"bf16 graphed chunk: launches {c}, want {w}")
         rel = max(abs(a - b) / abs(b) for a, b in zip(graphed, eager))
         dp = (flat(mg) - flat(me)).abs()
@@ -1581,7 +1648,7 @@ def scale_out_phase(torch, dev, card, cfg, counted, zero, results) -> None:
     idx = np.stack([np.stack([np.random.default_rng([s, k]).permutation(8 * TB)[:TB]
                               for s in POP_SEEDS]) for k in range(POP_STEPS)])  # (steps, S, B)
     per_pop_step = {**zero, "fused_gat": TO + TP, "fused_gat_lanes": TO + TP,
-                    "weight_grad_lanes": WGRAD_STEP}
+                    "weight_grad_lanes": WGRAD_STEP, "fused_gat_grad": GRAD_STEP}
     with torch.enable_grad():
         params = popm.stack_lanes(states, dev)
         model = popm.lane_model(pcfg, dev)
@@ -1870,7 +1937,8 @@ def protocol_phase(torch, dev, card, counted, zero) -> None:
         want = {**zero, "fused_gat_lanes": len(SCENES) * capture,
                 "fused_gat": len(SCENES) * capture + sum(
                     len(LOO_SEEDS) * math.ceil(n / 16) * per_batch for n in n_test.values()),
-                "weight_grad_lanes": len(SCENES) * (tr.CAPTURE_WARMUP + 1) * WGRAD_STEP}
+                "weight_grad_lanes": len(SCENES) * (tr.CAPTURE_WARMUP + 1) * WGRAD_STEP,
+                "fused_gat_grad": len(SCENES) * (tr.CAPTURE_WARMUP + 1) * GRAD_STEP}
         check(counts == want, f"train --scene all: launches {counts}, want {want}")
         table = out[out.index("\nleave-one-out (config 4"):].strip().splitlines()
         rows = [r for r in table if r.split()[0] in SCENES + ("AVG",)]
@@ -1948,7 +2016,8 @@ def protocol_phase(torch, dev, card, counted, zero) -> None:
             out, _, counts = cli(fold + ["--out-dir", str(prof_dir), "--profile"])
             prof_s = time.perf_counter() - t0
         want = {**zero, "fused_gat": PROFILE_STEPS * 2 * (TO + TP)
-                + math.ceil(n_test[PROFILE_SCENE] / 16) * per_batch}
+                + math.ceil(n_test[PROFILE_SCENE] / 16) * per_batch,
+                "fused_gat_grad": PROFILE_STEPS * GRAD_STEP}
         check(counts == want, f"profiled fold: launches {counts}, want {want}")
         by_cat, top = profiling.summarize_trace(str(prof_dir / "profile"), top=10**9)
         in_trace = sum(occ_ for _, cat, name, occ_ in top if "gat_kernel" in name)
@@ -2489,7 +2558,8 @@ def config3_phase(torch, dev, card, counted, zero) -> None:
     # c. recipe steps, use_pallas against plain, from one state and the same draws.
     state0 = states[0]
     xb, mb = xy[:TB], mask[:TB]
-    per_step = {**zero, "fused_gat": 2 * (TO + TP)}  # 8 + 12 forward, again under remat
+    per_step = {**zero, "fused_gat": 2 * (TO + TP),  # 8 + 12 forward, again under remat
+                "fused_gat_grad": GRAD_STEP}
 
     def recipe_run(mc, expect):
         model = Forecaster(mc, TO, TP, device=dev, state=state0)
@@ -2524,7 +2594,7 @@ def config3_phase(torch, dev, card, counted, zero) -> None:
     idx = np.stack([np.stack([np.random.default_rng([s, k]).permutation(C3_B)[:TB]
                               for s in POP_SEEDS]) for k in range(2 * C3_POP_M)])
     per_pop = {**zero, "fused_gat": TO + TP, "fused_gat_lanes": TO + TP,
-               "weight_grad_lanes": WGRAD_STEP}
+               "weight_grad_lanes": WGRAD_STEP, "fused_gat_grad": GRAD_STEP}
     with torch.enable_grad():
         params = popm.stack_lanes(states, dev)
         ema = {k_: x.detach().clone() for k_, x in params.items()}
@@ -2577,7 +2647,7 @@ def config3_phase(torch, dev, card, counted, zero) -> None:
     check(finite and res["routes_agree"] and max(res["route_gap_m"].values()) <= EVAL_ADE_TOL,
           f"config3 yardstick smoke: finite {finite}, route gaps {res['route_gap_m']}")
     check(all(counts[k_] > 0 for k_ in ("fused_gat", "fused_gat_lanes", "fused_decode",
-                                        "weight_grad_lanes")),
+                                        "weight_grad_lanes", "fused_gat_grad")),
           f"config3 yardstick smoke: launches {counts}")
     log(f"config3 yardstick smoke ({C3_SMOKE_STEPS} steps, {C3_SMOKE_FRAMES} frames a scene, "
         f"{len(res['seeds'])} seeds; not the yardstick): training {res['train_seconds']:.1f} s, "
@@ -2681,11 +2751,17 @@ def experiments_phase(torch, dev, card, counted, zero) -> None:
                     out_k, out_p = run(kernel, leaves), run(plain, leaves)
                     g_k = torch.autograd.grad(out_k, leaves, up)
                     g_p = torch.autograd.grad(out_p, leaves, up)
+                    wide = [x.detach().double().requires_grad_() for x in leaves]
+                    g_w = torch.autograd.grad(run(plain, wide), wide, up.double())
                 err = held(f"{name} Function ({b}, {X_N}, {d}) H={heads}", out_k, out_p)
-                g_err = max(held(f"{name} Function gradient ({b}, {X_N}, {d})", a, c)
-                            for a, c in zip(g_k, g_p))
+                if name == "fused_gat":  # the backward kernel: held to float64 (GRAD_TOL)
+                    g_err = faithful(torch, g_k, g_p, g_w)
+                else:
+                    g_err = max(held(f"{name} Function gradient ({b}, {X_N}, {d})", a, c)
+                                for a, c in zip(g_k, g_p))
                 log(f"experiments {name} autograd Function ({b}, {X_N}, {d}) H={heads}: forward "
-                    f"{err:.3e}, gradients of {len(leaves)} inputs {g_err:.3e} (tol {KERNEL_TOL})")
+                    f"{err:.3e}, gradients of {len(leaves)} inputs {g_err:.3e} (tol "
+                    f"{GRAD_TOL if name == 'fused_gat' else KERNEL_TOL})")
     for n in (64, 128):  # attend at hidden 128, 4 heads: the rollout's B·K graphs
         bk = 500 if n == 64 else 240
         t = kernel_inputs.tensor
@@ -2737,7 +2813,8 @@ def experiments_phase(torch, dev, card, counted, zero) -> None:
         capture = (tr.CAPTURE_WARMUP + 1) * (TO + TP)  # a chunk counts its warm-up and capture
         per_eval = S * math.ceil(n_test / 16) * (TO + 2 * TP)  # each seed's final evaluation
         want = {**zero, "fused_gat_lanes": capture, "fused_gat": capture + per_eval,
-                "weight_grad_lanes": (tr.CAPTURE_WARMUP + 1) * WGRAD_STEP}
+                "weight_grad_lanes": (tr.CAPTURE_WARMUP + 1) * WGRAD_STEP,
+                "fused_gat_grad": (tr.CAPTURE_WARMUP + 1) * GRAD_STEP}
         for name, script, argv in (("social arm C1", torch_social_ablation, ["--arm", "C1"]),
                                    ("dense cell A", torch_dense_sweep, ["--cell", "A"])):
             t0 = time.perf_counter()
@@ -2846,6 +2923,48 @@ def wgrad_phase(torch, dev, card) -> dict:
     slower = [k for k, r in rows.items() if r["ms"] > r["library_ms"]]
     log(f"wgrad: slower than cuBLAS at {slower or 'no shape'}")
     return rows["config3 gru"]
+
+
+def gat_grad_phase(torch, dev, card) -> dict:
+    """Phase 21: ``fused_gat_grad`` at each of ``kernel_inputs.GRAD_CASES``
+    against the float64 VJP of ``attend_math`` and the float32 one
+    (``attend_grad_math``) and against itself, with device times of the
+    kernels and of the plain VJP, its bound and occupancy; -> the kernels
+    line's row, at config4-attn3's frame graphs."""
+    from mmtraj_torch.ops import _build, fused_gat
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import kernel_inputs
+
+    rows = {}
+    for b, n, hd, heads in kernel_inputs.GRAD_CASES:
+        rng = np.random.default_rng(b + n + hd)
+        args = kernel_inputs.gat_grad_case(rng, b, n, hd, heads, dev)
+        before = fused_gat.fused_gat_grad.launches
+        out, again = fused_gat.fused_gat_grad(*args), fused_gat.fused_gat_grad(*args)
+        want = fused_gat.attend_grad_math(*(a.double() for a in args[:5]), heads)
+        plain = fused_gat.attend_grad_math(*args)
+        torch.cuda.synchronize()
+        errs = [faithful(torch, [o], [p_], [w]) for o, p_, w in zip(out, plain, want)]
+        plain_errs = [(p_.double() - w).abs().max().item() / w.abs().max().item()
+                      for p_, w in zip(plain, want)]
+        same = all(torch.equal(a, c) for a, c in zip(out, again))
+        check(fused_gat.fused_gat_grad.launches == before + 2 and same,
+              f"fused_gat_grad {(b, n, hd)} H={heads}: repeats to the bit {same}")
+        cost = grad_cost(b, n, hd, heads)
+        bound_ms, bound_by = bound(*cost[:2])
+        r = dict(max_abs_err=max(errs), plain_err=max(plain_errs),
+                 ms=time_ms(torch, lambda args=args: fused_gat.fused_gat_grad(*args)),
+                 plain_ms=time_ms(torch, lambda args=args: fused_gat.attend_grad_math(*args),
+                                  reps=5, inner=2),
+                 cost=cost, occupancy=_build.occupancy("gat_grad", n, heads, hd))
+        rows[(b, n, hd, heads)] = r
+        log(f"fused_gat_grad ({b}, {n}, {hd}) H={heads}: errors of agg, dv, ds_src, ds_dst "
+            f"{[f'{e:.2e}' for e in errs]} of the float64 VJP's largest entries (float32 VJP "
+            f"{[f'{e:.2e}' for e in plain_errs]}), same to the bit; kernels {r['ms']:.4f} ms, "
+            f"plain VJP {r['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), tc bound "
+            f"{tc_bound(*cost):.5f} ms; {json.dumps(r['occupancy'])}; {card}")
+    return rows[kernel_inputs.GRAD_CASES[0]]
 
 
 def main() -> int:
@@ -3322,6 +3441,11 @@ def main() -> int:
     results["weight_grad_lanes"] = wgrad_phase(torch, dev, card)
     log(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
+    # -- 21. the GAT's backward ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    results["fused_gat_grad"] = gat_grad_phase(torch, dev, card)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
     # -- 7. the kernels line ----------------------------------------------------
     sources = {
         "attend": ("mmtraj_torch/csrc/attend.cu", "mmtraj/ops/fused_attend.py:212"),
@@ -3330,6 +3454,7 @@ def main() -> int:
         "fused_gat_lanes": ("mmtraj_torch/csrc/gat.cu", "mmtraj/ops/fused_gat.py:150"),
         "fused_decode": ("mmtraj_torch/csrc/decoder.cu", "mmtraj/ops/fused_decoder.py:208"),
         "weight_grad_lanes": ("mmtraj_torch/csrc/wgrad.cu", None),  # XLA's product in JAX
+        "fused_gat_grad": ("mmtraj_torch/csrc/gat_grad.cu", None),  # JAX's VJP of the plain math
     }
     kernels = []
     for name, (source, replaces) in sources.items():

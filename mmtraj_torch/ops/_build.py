@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 from mmtraj_torch.utils import build_cache
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("attend", "attend_packed", "gat", "decoder", "wgrad")
+KERNELS = ("attend", "attend_packed", "gat", "gat_grad", "decoder", "wgrad")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -161,6 +161,14 @@ def dense_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def dense_weight_grad(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """w's gradient of ``dense_product(x, w)`` at the output gradient g, for a
+    backward written by hand: ``mmtraj::weight_grad`` where w is a lane of
+    ``torch.func.vmap`` (as ``_DenseProduct``'s backward gives it),
+    ``weight_grad_math`` elsewhere (the plain product's)."""
+    return torch.ops.mmtraj.weight_grad(x, g) if _is_lane(w) else weight_grad_math(x, g)
+
+
 def _is_lane(t: torch.Tensor) -> bool:
     """Whether ``t`` is batched by ``torch.func.vmap``, read through the
     wrappers of transforms inside it (``_FusedGat``'s ``torch.func.vjp``)."""

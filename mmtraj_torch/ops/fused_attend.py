@@ -147,23 +147,27 @@ _attend_packed_op.register_fake(_attend_fake)
 
 
 def _fold_lanes(op):
-    """A vmap rule for ``op`` (``mmtraj::attend`` or ``mmtraj::attend_packed``)
-    over S lanes: every input with its lane axis first (an unbatched one
-    expanded), the lanes folded into the graphs of one launch, as JAX's
-    batching rule folds them into its grid.  No graph reads another's rows
-    (each has its own edge masks and tensor-core chain), so the result is
-    that of S launches, and the packed kernel's pairing of graphs into
-    blocks does not enter it."""
+    """A vmap rule for ``op`` (``mmtraj::attend``, ``mmtraj::attend_packed``
+    or ``mmtraj::gat_attend_grad``: tensors of B graphs each, then
+    ``num_heads``) over S lanes: every input with its lane axis first (an
+    unbatched one expanded), the lanes folded into the graphs of one launch,
+    as JAX's batching rule folds them into its grid.  No graph reads
+    another's rows (each has its own edge masks and tensor-core chain), so
+    the result is that of S launches, and the packed kernel's pairing of
+    graphs into blocks does not enter it."""
 
-    def rule(info, in_dims, v, s_src, s_dst, att, num_heads):
+    def rule(info, in_dims, *args):
         S = info.batch_size
+        *tensors, num_heads = args
 
         def fold(t, dim):
             t = t.movedim(dim, 0) if dim is not None else t.expand((S,) + t.shape)
             return t.reshape((-1,) + t.shape[2:]).contiguous()
 
-        out = op(*(fold(t, d) for t, d in zip((v, s_src, s_dst, att), in_dims)), num_heads)
-        return out.reshape((S, -1) + out.shape[1:]), 0
+        out = op(*(fold(t, d) for t, d in zip(tensors, in_dims)), num_heads)
+        if isinstance(out, torch.Tensor):
+            return out.reshape((S, -1) + out.shape[1:]), 0
+        return tuple(o.reshape((S, -1) + o.shape[1:]) for o in out), (0,) * len(out)
 
     return rule
 

@@ -2,8 +2,10 @@
 
 Counterpart of ``mmtraj/ops/fused_gat.py``.  ``gat_math`` is the plain
 PyTorch version; ``fused_gat`` is the wrapper of the Hopper kernel in
-``csrc/gat.cu``, a ``torch.autograd.Function`` whose backward is autograd of
-``gat_math``, as the JAX package's ``custom_vjp`` differentiates it.
+``csrc/gat.cu``, a ``torch.autograd.Function`` whose backward gives
+``gat_math``'s gradients, as the JAX package's ``custom_vjp`` differentiates
+it: the attend chain's part by the kernels of ``csrc/gat_grad.cu``
+(``fused_gat_grad``), the products around it plainly.
 
 Kernel note.  Replaces ``mmtraj/ops/fused_gat.py:_fused_gat_fwd_impl``
 (kernel ``_gat_kernel``).  On the H100 it is bound by operations: at the main
@@ -28,17 +30,27 @@ kernel on CUDA, and a fake implementation for ``torch.export``.  Under
 seeds) its vmap rule calls ``mmtraj::fused_gat_lanes``: the same kernel in
 one launch for all S * B graphs, graph b reading the weights of lane b / B,
 as JAX's batching rule makes a grid axis of the vmapped ``pallas_call``.
+
+The backward's op ``mmtraj::gat_attend_grad`` (``fused_gat_grad``) has no
+TPU counterpart: JAX differentiates the plain math, about 200 ops a call at
+4 heads, each over a (B, N, N) tensor.  It is for speed only: on the CPU it
+is ``torch.func.vjp`` of ``attend_math`` (the decomposition the CPU tests
+drive), on CUDA three launches that keep every N x N value on chip, and under
+``torch.func.vmap`` the lanes fold into the graphs of one call (the op takes
+no weights).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from mmtraj_torch.ops import _build
-from mmtraj_torch.ops.dense_grad import dense_product
-from mmtraj_torch.ops.fused_attend import MAX_N, _math_vjp, _wants_grad, attend_math
+from mmtraj_torch.ops.dense_grad import dense_product, dense_weight_grad
+from mmtraj_torch.ops.fused_attend import (MAX_N, _check, _fold_lanes, _math_vjp, _wants_grad,
+                                           attend_math)
 
 
 def _block_diag(a: torch.Tensor) -> torch.Tensor:
@@ -52,8 +64,8 @@ def gat_math(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tenso
     """h (B, N, D); attend (B, N, N) 0/1 float; wv (D, H*dh); a_src/a_dst
     (H, dh); wo (H*dh, Dout); bo (Dout,) -> (B, N, Dout) float32.  For a
     population's lanes the two weight products take their weights' gradient
-    from the weight-gradient kernel (``dense_product``), in ``_FusedGat``'s
-    backward too."""
+    from the weight-gradient kernel (``dense_product``; in ``_FusedGat``'s
+    backward ``dense_weight_grad``)."""
     v = dense_product(h, wv)
     s_src = v @ _block_diag(a_src)
     s_dst = v @ _block_diag(a_dst)
@@ -128,20 +140,104 @@ def _fused_gat_vmap(  # lint: ok: torch.library calls it
     return out, 0
 
 
+def attend_grad_math(v, s_src, s_dst, attend, d_agg, num_heads: int):
+    """``attend_math(v, s_src, s_dst, attend, num_heads)`` and its VJP at
+    ``d_agg`` for v, s_src and s_dst, by ``torch.func.vjp`` -> (agg, dv,
+    ds_src, ds_dst)."""
+    agg, vjp = torch.func.vjp(lambda *x: attend_math(*x, attend, num_heads), v, s_src, s_dst)
+    return (agg, *vjp(d_agg))
+
+
+@torch.library.custom_op("mmtraj::gat_attend_grad", mutates_args=(), device_types="cpu")
+def _gat_attend_grad_op(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+                        attend: torch.Tensor, d_agg: torch.Tensor, num_heads: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mmtraj::gat_attend_grad`` on the CPU: the plain version."""
+    return attend_grad_math(v, s_src, s_dst, attend, d_agg, num_heads)
+
+
+@_gat_attend_grad_op.register_kernel("cuda")
+def _gat_attend_grad_cuda(  # lint: ok: torch.library calls it
+        v, s_src, s_dst, attend, d_agg, num_heads):
+    """One call of ``mmtraj_gat_grad`` (``csrc/gat_grad.cu``, three launches)
+    on checked CUDA inputs, counted in ``fused_gat_grad.launches``; its
+    scratch (the rows' statistics, the edge bits) allocated here."""
+    _check(v, s_src, s_dst, attend, num_heads)
+    B, N, HD = v.shape
+    _build.check_cuda(d_agg, "d_agg", (B, N, HD))
+    agg, dv = torch.empty_like(v), torch.empty_like(v)
+    ds_src, ds_dst = torch.empty_like(s_src), torch.empty_like(s_dst)
+    stats = torch.empty((B, num_heads, 3, N), dtype=torch.float64, device=v.device)
+    bits = torch.empty((2, B, N, (N + 31) // 32), dtype=torch.int32, device=v.device)
+    lib = _build.load("gat_grad")
+    fn = lib.mmtraj_gat_grad
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(v.device):
+        code = fn(*(t.data_ptr() for t in (v, s_src, s_dst, attend, d_agg, agg, dv, ds_src,
+                                           ds_dst, stats, bits)),
+                  B, N, num_heads, HD, _build.stream_of(v))
+    _build.raise_on_error(lib, code, "gat_grad")
+    fused_gat_grad.launches += 1
+    return agg, dv, ds_src, ds_dst
+
+
+@_gat_attend_grad_op.register_fake
+def _gat_attend_grad_fake(  # lint: ok: torch.library calls it
+        v, s_src, s_dst, attend, d_agg, num_heads):
+    return (v.new_empty(v.shape), v.new_empty(v.shape), s_src.new_empty(s_src.shape),
+            s_dst.new_empty(s_dst.shape))
+
+
+torch.library.register_vmap("mmtraj::gat_attend_grad",
+                            _fold_lanes(torch.ops.mmtraj.gat_attend_grad))
+
+
+def _gat_grads(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int, g, needs):
+    """``gat_math``'s gradients at the output gradient g for the inputs that
+    ``needs`` marks (None for the rest, ``attend`` and ``num_heads``): v and
+    its scores recomputed, the attend chain's VJP and its output from
+    ``mmtraj::gat_attend_grad``, the products around it plainly, in the
+    order autograd of ``gat_math`` takes them (on the CPU the gradients are
+    its own to the bit).  A weight that is a population's lane takes its
+    gradient from the weight-gradient kernel (``dense_weight_grad``), as
+    ``dense_product``'s backward gives it."""
+    bd_src, bd_dst = _block_diag(a_src), _block_diag(a_dst)
+    v = h @ wv
+    agg, dv, ds_src, ds_dst = fused_gat_grad(v, v @ bd_src, v @ bd_dst, attend, g @ wo.mT,
+                                             num_heads)
+    dv = dv + ds_dst @ bd_dst.mT + ds_src @ bd_src.mT
+    H, HD = num_heads, v.shape[-1]
+
+    def score_grad(ds):  # (H, dh): the diagonal blocks of v^T ds, _block_diag's gradient
+        full = (v.reshape(-1, HD).mT @ ds.reshape(-1, H)).reshape(H, HD // H, H)
+        return torch.diagonal(full, dim1=0, dim2=2).mT
+
+    return (dv @ wv.mT if needs[0] else None, None,
+            dense_weight_grad(h, dv, wv) if needs[2] else None,
+            score_grad(ds_src) if needs[3] else None,
+            score_grad(ds_dst) if needs[4] else None,
+            dense_weight_grad(agg, g, wo) if needs[5] else None,
+            g.sum(tuple(range(g.dim() - 1))) if needs[6] else None, None)
+
+
 class _FusedGat(torch.autograd.Function):
-    """``mmtraj::fused_gat`` forward with the JAX package's backward: the VJP
-    of ``gat_math`` on the saved inputs (``mmtraj/ops/fused_gat.py:_bwd``),
-    taken by ``torch.func.vjp``.  ``attend`` gets the gradient of
-    ``gat_math`` too, as JAX's VJP returns one, but only when the caller's
-    ``attend`` requires it (the model's 0/1 tile, made from a bool
-    adjacency, never does); ``num_heads`` gets none.  There is no backward
-    kernel, as in JAX.  On CPU tensors the op's forward is ``gat_math``
-    itself (the CPU tests drive the Function that way).
+    """``mmtraj::fused_gat`` forward with the JAX package's backward, the VJP
+    of ``gat_math`` on the saved inputs (``mmtraj/ops/fused_gat.py:_bwd``):
+    the attend chain's part from ``mmtraj::gat_attend_grad`` (the kernels of
+    ``csrc/gat_grad.cu`` on the card), the products around it plainly
+    (``_gat_grads``).  ``attend`` gets the gradient of ``gat_math`` too, as
+    JAX's VJP returns one, but only when the caller's ``attend`` requires it
+    (the model's 0/1 tile, made from a bool adjacency, never does): that
+    backward is ``torch.func.vjp`` of ``gat_math``, which has the tile's
+    gradient.  ``num_heads`` gets none.  On CPU tensors both ops are their
+    plain versions (the CPU tests drive the Function that way).
 
     Written with a separate ``setup_context``, ``generate_vmap_rule`` and a
     functional backward, so that it runs under ``torch.func.vmap`` (a
     population of seeds, ``mmtraj_torch/population.py``): the forward's op
-    then takes its vmap rule, one lane-batched launch."""
+    then takes its vmap rule, one lane-batched launch, and so does the
+    backward's."""
 
     generate_vmap_rule = True
 
@@ -156,7 +252,9 @@ class _FusedGat(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _math_vjp(gat_math, ctx.saved_tensors, ctx.needs_input_grad, ctx.num_heads, g)
+        if ctx.needs_input_grad[1]:  # the tile's gradient: the plain VJP has it
+            return _math_vjp(gat_math, ctx.saved_tensors, ctx.needs_input_grad, ctx.num_heads, g)
+        return _gat_grads(*ctx.saved_tensors, ctx.num_heads, g, ctx.needs_input_grad)
 
 
 def fused_gat(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tensor:
@@ -239,5 +337,16 @@ def _launch_lanes(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.
     return out
 
 
+def fused_gat_grad(v, s_src, s_dst, attend, d_agg, num_heads: int):
+    """``mmtraj::gat_attend_grad``: the attend chain ``attend_math(v, s_src,
+    s_dst, attend, num_heads)`` and its VJP at ``d_agg`` -> (agg, dv, ds_src,
+    ds_dst), the gradients of v, s_src and s_dst (the 0/1 tile gets none).
+    On CUDA tensors the kernels of ``csrc/gat_grad.cu``, counted in
+    ``fused_gat_grad.launches`` (one a call); on CPU tensors
+    ``attend_grad_math``.  Vmappable: one call for every lane."""
+    return torch.ops.mmtraj.gat_attend_grad(v, s_src, s_dst, attend, d_agg, num_heads)
+
+
 fused_gat.launches = 0
 fused_gat_lanes.launches = 0
+fused_gat_grad.launches = 0

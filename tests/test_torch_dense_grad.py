@@ -203,10 +203,13 @@ def test_the_plan_covers_every_row_and_fills_the_card(s, r, din, dout):
 def _population_grads(route: bool, spies):
     """One config-3 recipe step of 5 lanes at B = 4 -> (lane losses, each
     leaf's gradient, op calls); with ``route`` False the two modules that
-    take ``dense_product`` get the plain product, as before the kernel."""
+    take ``dense_product`` get the plain product, and ``_FusedGat``'s
+    backward the plain weight gradient, as before the kernel."""
     plain = (lambda x, w: x @ w)
     product = dense_grad.dense_product if route else plain
     layers.dense_product = fused_gat.dense_product = product
+    if not route:
+        fused_gat.dense_weight_grad = lambda x, g, w: dense_grad.weight_grad_math(x, g)
     try:
         cfg = port_config(recipe_jcfg(**RECIPE_MODEL, use_pallas=True))
         seeds = list(range(S))
@@ -226,6 +229,7 @@ def _population_grads(route: bool, spies):
         return losses, {k: v.grad.clone() for k, v in params.items()}, dict(spies)
     finally:
         layers.dense_product = fused_gat.dense_product = dense_grad.dense_product
+        fused_gat.dense_weight_grad = dense_grad.dense_weight_grad
 
 
 def test_population_step_gradients_equal_the_plain_products(spies):

@@ -10,7 +10,11 @@ in another order and divides once per row instead of once per weight);
 1e-3 m for rollouts, where those differences pass through 12 recurrent steps,
 with at most 1% of the rollouts further off: a Gumbel pick within rounding
 of a tie may take another component, and the change spreads through that
-graph.
+graph.  The GAT's backward kernel (``fused_gat_grad``) sums its gradients
+in another order than autograd of the plain math, over up to 8,192 rows a
+weight, so its gradients are held to the float64 plain math: within 1e-5 of
+each leaf's largest entry and no more than 4x further from it than the
+float32 plain math's.
 """
 
 import dataclasses
@@ -45,6 +49,18 @@ def cuda():
 
 
 _t, _attend_tile = kernel_inputs.tensor, kernel_inputs.attend_tile
+
+
+def _assert_as_close_to_float64_as_plain(got, plain, wide, name):
+    """Each of ``got`` within 1e-5 of the float64 ``wide``'s largest entry and
+    no more than 4x further from it than the float32 ``plain`` (an error under
+    float32's epsilon counted as that epsilon)."""
+    eps = float(np.finfo(np.float32).eps)
+    for i, (g, p, w) in enumerate(zip(got, plain, wide)):
+        scale = w.abs().max().item()
+        err = (g.double() - w).abs().max().item() / scale
+        plain_err = (p.double() - w).abs().max().item() / scale
+        assert err <= 1e-5 and err <= 4 * max(plain_err, eps), (name, i, err, plain_err)
 
 
 @pytest.mark.parametrize("n, heads, hd", [(8, 2, 16), (64, 4, 64), (100, 4, 64), (256, 8, 64),
@@ -275,7 +291,9 @@ def test_functions_at_the_experiments_training_shapes(cuda, b, d, heads):
     """``fused_gat`` and ``attend`` as the autograd Functions that
     ``use_pallas`` training runs, at the experiments' training batch (16) and
     variety rollout (8 x 16): forward and every input's gradient against
-    autograd of the plain math."""
+    autograd of the plain math (``fused_gat``'s gradients, from the backward
+    kernel, against the float64 plain math and the float32 one's distance
+    from it)."""
     rng = np.random.default_rng(b + d)
     h, att, wv, a_src, a_dst, wo, bo = _gat_args(rng, b, 64, d, heads, cuda)
     up = _t(rng, b, 64, d)
@@ -294,6 +312,11 @@ def test_functions_at_the_experiments_training_shapes(cuda, b, d, heads):
         g_p = torch.autograd.grad(out_p, leaves, up)
         torch.cuda.synchronize()
         torch.testing.assert_close(out_k, out_p, **KERNEL)
+        if kernel is fused_gat.fused_gat:
+            wide = [x.detach().double().requires_grad_() for x in leaves]
+            g_w = torch.autograd.grad(run(plain, wide), wide, up.double())
+            _assert_as_close_to_float64_as_plain(g_k, g_p, g_w, f"fused_gat {b, d, heads}")
+            continue
         for a, c in zip(g_k, g_p):
             torch.testing.assert_close(a, c, **KERNEL)
 
@@ -647,14 +670,9 @@ def test_weight_grad_vmap_expands_a_shared_operand_on_the_card(cuda, in_dims):
     torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * want.abs().max().item())
 
 
-def test_graphed_population_step_launches_the_weight_gradient_kernel(cuda):
-    """Config 3 with the recipe's variety loss in a population of 3 lanes,
-    chunks of 3 replayed from a CUDA graph: the first chunk's warm-up steps
-    and capture each make a step's launches, the replays none.  A step: every
-    product of the encoder's TO steps (the first step's wh with the zero
-    state every lane shares) and bridge_h, the rollout's TP heads and the
-    other five products of its first TP - 1 steps, all on
-    ``weight_grad_lanes``."""
+def _graphed_population(cuda):
+    """Config 3 with the recipe's variety loss in a population of 3 lanes
+    -> (population step, xy, mask, batch indices of 6 steps, TO, TP)."""
     from mmtraj_torch import config, population, train
 
     base = config.config3()
@@ -677,14 +695,92 @@ def test_graphed_population_step_launches_the_weight_gradient_kernel(cuda):
         t.augment_rotate, t.augment_flip, t.loss, t.variety_n)
     rng = np.random.default_rng(0)
     idx = np.stack([np.stack([rng.permutation(16)[:4] for _ in seeds]) for _ in range(6)])
+    return pop, xy, mask.to(cuda), idx, to, tp
+
+
+def test_graphed_population_step_launches_the_weight_gradient_kernel(cuda):
+    """Config 3 with the recipe's variety loss in a population of 3 lanes,
+    chunks of 3 replayed from a CUDA graph: the first chunk's warm-up steps
+    and capture each make a step's launches, the replays none.  A step: every
+    product of the encoder's TO steps (the first step's wh with the zero
+    state every lane shares) and bridge_h, the rollout's TP heads and the
+    other five products of its first TP - 1 steps, all on
+    ``weight_grad_lanes``."""
+    from mmtraj_torch import train
+
+    pop, xy, mask, idx, to, tp = _graphed_population(cuda)
     per_step = {"weight_grad_lanes": 5 * to + 1 + tp + 5 * (tp - 1), "weight_grad": 0}
     for k, steps in ((0, train.CAPTURE_WARMUP + 1), (1, 0)):
         before = {name: getattr(dense_grad, name).launches for name in per_step}
-        losses = pop(xy, mask.to(cuda), idx[3 * k:3 * k + 3], range(3 * k, 3 * k + 3))
+        losses = pop(xy, mask, idx[3 * k:3 * k + 3], range(3 * k, 3 * k + 3))
         torch.cuda.synchronize()
         assert torch.isfinite(losses).all()
         assert {name: getattr(dense_grad, name).launches - before[name]
                 for name in per_step} == {name: steps * c for name, c in per_step.items()}
+
+
+@pytest.mark.parametrize("b, n, hd, heads", kernel_inputs.GRAD_CASES)
+def test_gat_grad_kernel_matches_the_float64_vjp_and_repeats_to_the_bit(cuda, b, n, hd, heads):
+    """``fused_gat_grad`` (``csrc/gat_grad.cu``) at the training paths'
+    shapes, a padded agent, head 0's self edges at logit 0: each output
+    within 1e-5 of the float64 VJP's largest entry and no more than 4x
+    further from it than the float32 VJP (an error under float32's epsilon
+    counted as that epsilon); two calls equal to the bit; the padded agent's
+    outputs 0."""
+    rng = np.random.default_rng(b + n + hd)
+    args = kernel_inputs.gat_grad_case(rng, b, n, hd, heads, cuda)
+    before = fused_gat.fused_gat_grad.launches
+    got, again = fused_gat.fused_gat_grad(*args), fused_gat.fused_gat_grad(*args)
+    want = fused_gat.attend_grad_math(*(a.double() for a in args[:5]), heads)
+    plain = fused_gat.attend_grad_math(*args)
+    torch.cuda.synchronize()
+    assert fused_gat.fused_gat_grad.launches == before + 2
+    _assert_as_close_to_float64_as_plain(got, plain, want, (b, n, hd, heads))
+    for name, g, a in zip(("agg", "dv", "ds_src", "ds_dst"), got, again):
+        assert torch.equal(g, a), name
+        assert not g[:, -1].any(), name
+
+
+@pytest.mark.parametrize("path", ["config4-attn3", "population"])
+def test_graphed_steps_launch_the_gat_backward_kernel(cuda, path, monkeypatch):
+    """A graphed config4-attn3 step (B = 16, remat "full") and a graphed
+    population step of config 3 launch ``fused_gat_grad`` once a
+    ``_FusedGat`` backward, counted at capture: the attention encoder's 3
+    layers and the decoder's first 11 GATs (the last feeds no loss), the
+    population's 8 encoder GATs and 11; no backward takes the plain VJP."""
+    from mmtraj_torch import train
+    from mmtraj_torch.benchmarks import train_bench
+    from mmtraj_torch.config import config4
+    from mmtraj_torch.ops import launch_counters
+
+    plain_vjps = []
+    monkeypatch.setattr(fused_gat, "_math_vjp", lambda *a: plain_vjps.append(a) or None)
+    if path == "population":
+        pop, xy, mask, idx, to, tp = _graphed_population(cuda)
+        counters = launch_counters()
+        before = {k: c.launches for k, c in counters.items()}
+        losses = pop(xy, mask, idx[:3], range(3))
+        capture = {k: (c.launches - before[k]) // (train.CAPTURE_WARMUP + 1)
+                   for k, c in counters.items()}
+        want = {"fused_gat": to + tp, "fused_gat_lanes": to + tp, "fused_gat_grad": to + tp - 1}
+    else:
+        cfg = config4()
+        mc = dataclasses.replace(cfg.model, encoder="attn", attn_layers=3, use_pallas=True)
+        to, tp, n = cfg.data.obs_len, cfg.data.pred_len, cfg.data.n_max
+        model = Forecaster(mc, to, tp, device=cuda, generator=torch.Generator().manual_seed(0))
+        stats = NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32))
+        multi = train.make_multi_train_step(model, train.make_optimizer(cfg.replace(model=mc),
+                                                                        model), stats)
+        xy, mask = train_bench.fake_batch(32, n, to + tp, cuda)
+        rng = np.random.default_rng(1)
+        losses = multi(xy, mask, np.stack([rng.permutation(32)[:16] for _ in range(3)]),
+                       range(3))
+        capture = multi.capture_launches
+        want = {"fused_gat": 2 * (3 + tp), "fused_gat_grad": 3 + tp - 1}
+    torch.cuda.synchronize()
+    assert torch.isfinite(losses).all()
+    assert {k: capture[k] for k in want} == want
+    assert not plain_vjps
 
 
 def test_attn3_graphed_training_matches_the_reference(cuda):

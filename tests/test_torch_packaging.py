@@ -44,9 +44,10 @@ def test_sources_are_package_data(package_data, package, pattern, path):
 
 
 def test_seven_cuda_sources():
-    # Seven before the weight-gradient kernel (csrc/wgrad.cu) made eight.
+    # Seven before the weight-gradient kernel (csrc/wgrad.cu) made eight and
+    # the GAT's backward (csrc/gat_grad.cu) nine.
     assert CSRC == ["attend.cu", "attend_block.cuh", "attend_common.cuh", "attend_packed.cu",
-                    "decoder.cu", "gat.cu", "tile_mma.cuh", "wgrad.cu"], CSRC
+                    "decoder.cu", "gat.cu", "gat_grad.cu", "tile_mma.cuh", "wgrad.cu"], CSRC
 
 
 def test_every_python_directory_is_a_package():

@@ -88,3 +88,26 @@ def rollout_errors(got, want, mask, tol=1e-3):
     (the largest of all, how many graphs are past ``tol``)."""
     err = torch.where(mask[:, None, :, None], (got - want).abs(), 0.0).flatten(1).amax(1)
     return float(err.max()), int((err > tol).sum())
+
+
+# The GAT backward's attend chain (fused_gat.fused_gat_grad) on the training
+# paths, (graphs, N, HD, heads): config4-attn3's B·T = 1,024 frame graphs and
+# its decoder's 128, config 3's population rollout (5 lanes x 256 graphs,
+# folded as the vmap rule folds them), N = 256, and one head of 128.
+GRAD_CASES = [(1024, 64, 64, 4), (128, 64, 64, 4), (1280, 32, 64, 1), (16, 256, 64, 4),
+              (16, 256, 128, 1)]
+
+
+def gat_grad_case(rng, b, n, hd, heads, device="cuda"):
+    """Inputs of ``fused_gat_grad`` -> (v, s_src, s_dst, attend, d_agg,
+    heads): ``attend_tile``'s edges with self edges, the last agent padded
+    (no edge in or out), and head 0's s_dst = -s_src, so that every self
+    edge's logit of that head is exactly 0 (LeakyReLU's kink)."""
+    v, d_agg = tensor(rng, b, n, hd, device=device), tensor(rng, b, n, hd, device=device)
+    s_src = tensor(rng, b, n, heads, scale=2, device=device)
+    s_dst = tensor(rng, b, n, heads, scale=2, device=device)
+    s_dst[..., 0] = -s_src[..., 0]
+    att = torch.maximum(attend_tile(rng, b, n, device), torch.eye(n, device=device))
+    att[:, -1] = 0.0
+    att[:, :, -1] = 0.0
+    return v, s_src, s_dst, att.contiguous(), d_agg, heads
