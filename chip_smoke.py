@@ -9,7 +9,7 @@ seed 0), and the dense-crowd path of ``mmtraj_torch.benchmarks.rollout_bench``
 entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
 
 1. versions, and the card's name and power limit from nvidia-smi;
-2. build the four CUDA kernels from ``mmtraj_torch/csrc`` (one nvcc each,
+2. build every CUDA kernel of ``mmtraj_torch/csrc`` (one nvcc each,
    all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with device times of both (CUDA-graph replays
@@ -208,16 +208,15 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
 20. (run before 7's line) the weight gradient of the float32 dense
    products (``csrc/wgrad.cu``, ``ops/dense_grad.py``) at the shapes of
    the training paths that take it (``WGRAD_CASES``: config 3's population
-   of 5 lanes, the experiments' hidden 128 and LSTM populations, and the
-   unbatched op at one lane's shapes), against the float64 product (within
+   of 5 lanes, the experiments' hidden 128 and LSTM populations, and one
+   lane at a lane's shapes), against the float64 product (within
    ``WGRAD_TOL`` of its largest entry) and to the bit from call to call,
    with device times of the kernel, the plain version (a product a lane)
    and cuBLAS's one call for all lanes (``bmm``, ``mm`` for one lane) as
    ``library_ms``, its bound, split and occupancy.  Every launch check of
-   phases 4-19 counts ``weight_grad`` and ``weight_grad_lanes`` too: a
-   population step ``WGRAD_STEP`` of ``weight_grad_lanes``, a sequential
-   step none; the kernels line's ``weight_grad_lanes`` row counts the main
-   path's populations.
+   phases 4-19 counts ``weight_grad_lanes`` too: a population step
+   ``WGRAD_STEP``, a sequential step none; the kernels line's
+   ``weight_grad_lanes`` row counts the main path's populations.
 21. (run before 7's line) the GAT's backward (``csrc/gat_grad.cu``,
    ``fused_gat.fused_gat_grad``, ``_FusedGat``'s backward) at
    ``kernel_inputs.GRAD_CASES`` (config4-attn3's frame graphs and decoder
@@ -256,6 +255,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from perfcells.costs import attend_cost, decode_cost, gat_cost, lanes_cost
 
 B, N, TO, TP, K = 25, 64, 8, 12, 20
 CB, CNS, CITERS = 12, (128, 256), 10  # dense crowd: windows, agent counts, benchmark iters
@@ -342,9 +343,9 @@ BF16_LATER_LOSS_RTOL = 1e-3
 # training paths take to csrc/wgrad.cu: config 3's population (5 lanes, the
 # variety rollout's 8 x 32 x 32 rows and the encoder's 32 x 32), the
 # experiments' hidden-128 population (3 lanes, 8 x 16 x 64 and 16 x 64 rows)
-# and LSTM (64 x 256), and the unbatched op at one lane's shapes (a sequential
-# step keeps cuBLAS's mm, as fast there).  The error is of the float64
-# product's largest entry: float32 sums of up to 8,192 products.
+# and LSTM (64 x 256), and one lane at a lane's shapes (a sequential step keeps
+# cuBLAS's mm, as fast there).  The error is of the float64 product's largest
+# entry: float32 sums of up to 8,192 products.
 WGRAD_CASES = (("config3 gru", 5, 8192, 64, 192), ("config3 gat", 5, 8192, 64, 64),
                ("config3 head", 5, 8192, 64, 30), ("config3 embed", 5, 8192, 2, 64),
                ("config3 encoder gru", 5, 1024, 64, 192), ("config3 encoder gat", 5, 1024, 64, 64),
@@ -425,24 +426,6 @@ def tc_bound(flops: float, nbytes: float, products: float) -> float:
     return max(nbytes / HBM_RATE, t_ops) * 1e3
 
 
-def attend_cost(b, n, hd, h):
-    """Each input read once, the output written once; per graph 2 N^2 HD for
-    the aggregate (the product), 7 H N^2 for the chain, N HD for the division.
-    -> (flops, bytes, product flops)."""
-    products = b * 2 * n * n * hd
-    flops = products + b * (7 * h * n * n + n * hd)
-    nbytes = 4 * (2 * b * n * hd + 2 * b * n * h + b * n * n)
-    return flops, nbytes, products
-
-
-def gat_cost(b, n, d, hd, h, dout):
-    products = b * (2 * n * d * hd + 2 * n * n * hd + 2 * n * hd * dout)
-    flops = products + b * (4 * n * hd + 7 * h * n * n + n * hd + n * dout)
-    weights = d * hd + 2 * hd + hd * dout + dout
-    nbytes = 4 * (b * n * d + b * n * n + b * n * dout + weights)
-    return flops, nbytes, products
-
-
 def faithful(torch, got, plain, wide) -> float:
     """The largest error of the tensors ``got`` against the float64 ``wide``,
     each over its largest entry; raises unless each is within GRAD_TOL and no
@@ -470,24 +453,6 @@ def grad_cost(b, n, hd, h):
     flops = products + b * 16 * h * n * n
     nbytes = 4 * (4 * b * n * hd + 4 * b * n * h + b * n * n)
     return flops, nbytes, products
-
-
-def decode_cost(b, t, n, hd_, e, hd, h, m, n_weights):
-    """Per agent and step: head, sampling, embed, GRU, value and score
-    products, adjacency, attend chain, output product and residual.  The
-    matrix products are the head, GRU, value, aggregate and output ones."""
-    products = (2 * hd_ * 6 * m + 2 * (e + hd_) * 3 * hd_ + 2 * hd_ * hd + 2 * n * hd
-                + 2 * hd * hd_)
-    per = (products + 6 * m + 40
-           + 2 * 2 * e + 2 * e
-           + 3 * hd_ + 12 * hd_
-           + 4 * hd
-           + 8 * n
-           + 7 * h * n + hd
-           + 3 * hd_)
-    nbytes = 4 * (b * n * hd_ + 2 * b * n + b * n + b * t * n * m + b * t * n * 2
-                  + n_weights + b * t * n * 2)
-    return b * t * n * per, nbytes, b * t * n * products
 
 
 _LINE_NUMS = re.compile(r"([\w@.]+)=([-\d.]+)m?")
@@ -1569,13 +1534,6 @@ def serving_phase(torch, dev, card, cfg, routes, state, stats, xy_obs, mask, cou
     row = json.loads(buf.getvalue().strip().splitlines()[-1])
     check(row["card"] == card and len(row["batches"]) == 1, f"serve_bench line {row}")
     print(json.dumps(row), flush=True)
-
-
-def lanes_cost(s, b, n, d, hd, h, dout):
-    """``gat_cost`` of S lanes of B graphs, each lane reading its own weights."""
-    flops, nbytes, products = gat_cost(s * b, n, d, hd, h, dout)
-    weights = d * hd + 2 * hd + hd * dout + dout
-    return flops, nbytes + 4 * (s - 1) * weights, products
 
 
 def scale_out_phase(torch, dev, card, cfg, counted, zero, results) -> None:
@@ -2868,8 +2826,8 @@ def experiments_phase(torch, dev, card, counted, zero) -> None:
 
 
 def wgrad_phase(torch, dev, card) -> dict:
-    """Phase 20: ``weight_grad_lanes`` (``weight_grad`` for one lane) at each
-    of ``WGRAD_CASES`` against the float64 product and against itself, with
+    """Phase 20: ``weight_grad_lanes`` (one lane among them) at each of
+    ``WGRAD_CASES`` against the float64 product and against itself, with
     device times of the kernel, the plain version and cuBLAS's batched
     product (``library_ms``), its bound, split and occupancy; -> the
     kernels line's row, at config 3's largest product."""
@@ -2881,16 +2839,13 @@ def wgrad_phase(torch, dev, card) -> dict:
         gen = torch.Generator(device=dev).manual_seed(R + din * dout)
         x = torch.randn((S, R, din), generator=gen, device=dev)
         g = torch.randn((S, R, dout), generator=gen, device=dev)
-        if S == 1:
-            def kernel(x=x, g=g):
-                return dense_grad.weight_grad(x[0], g[0])[None]
+        def kernel(x=x, g=g):
+            return dense_grad.weight_grad_lanes(x, g)
 
+        if S == 1:
             def library(x=x, g=g):
                 return torch.mm(x[0].T, g[0])[None]
         else:
-            def kernel(x=x, g=g):
-                return dense_grad.weight_grad_lanes(x, g)
-
             def library(x=x, g=g):
                 return torch.bmm(x.transpose(1, 2), g)
 

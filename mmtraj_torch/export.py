@@ -45,12 +45,12 @@ META = "mmtraj_predictor.json"  # the artifact's extra file of metadata
 def draw_stream(rows: int, pred_len: int, n: int, num_mixtures: int, seed: int, device):
     """The rollout's random stream for ``rows`` = R*B graphs from one seed:
     (gumbel (rows, Tp, N, M), normal (rows, Tp, N, 2)), drawn as
-    ``Forecaster._rollout_stream`` draws from a generator."""
+    ``Forecaster._rollout_stream`` draws from a generator seeded so
+    (``fused_decoder.random_stream``)."""
+    from mmtraj_torch.ops.fused_decoder import random_stream
+
     g = torch.Generator(device=device).manual_seed(int(seed))
-    u = torch.rand((rows, pred_len, n, num_mixtures), generator=g, device=device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    normal = torch.randn((rows, pred_len, n, 2), generator=g, device=device)
-    return gumbel, normal
+    return random_stream(rows, pred_len, n, num_mixtures, g, device)
 
 
 class Predictor(nn.Module):

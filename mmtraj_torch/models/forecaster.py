@@ -250,18 +250,15 @@ class Forecaster(nn.Module):
         return torch.stack(outs, dim=2)
 
     # -- rollout random streams -----------------------------------------------
-    def _gumbel(self, u: torch.Tensor) -> torch.Tensor:
-        return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-
     def _rollout_stream(self, Bk: int, N: int, generator: torch.Generator = None,
                         sigma_scale: float = 1.0):
         """Pre-drawn rollout randomness on the device: (gumbel (Bk, T, N, M),
         normal (Bk, T, N, 2)), drawn from ``generator`` (the device's default
-        generator when None), the normals scaled by ``sigma_scale``.  Same
-        distributions as the JAX package's stream, not the same numbers."""
-        T, M = self.pred_len, self.cfg.num_mixtures
-        gumbel = self._gumbel(torch.rand((Bk, T, N, M), generator=generator, device=self.device))
-        normal = torch.randn((Bk, T, N, 2), generator=generator, device=self.device)
+        generator when None) by ``fused_decoder.random_stream``, the normals
+        scaled by ``sigma_scale``.  Same distributions as the JAX package's
+        stream, not the same numbers."""
+        gumbel, normal = fused_decoder.random_stream(Bk, self.pred_len, N, self.cfg.num_mixtures,
+                                                     generator, self.device)
         if sigma_scale != 1.0:
             normal = normal * sigma_scale
         return gumbel, normal
@@ -290,7 +287,7 @@ class Forecaster(nn.Module):
             g.manual_seed(int(seed))
             u[b].uniform_(generator=g)
             normal[b].normal_(generator=g)
-        gumbel = self._gumbel(u[..., :N, :]).transpose(0, 1).reshape(k * B, T, N, M)
+        gumbel = fused_decoder.gumbel(u[..., :N, :]).transpose(0, 1).reshape(k * B, T, N, M)
         normal = normal[..., :N, :].transpose(0, 1).reshape(k * B, T, N, 2)
         if sigma_scale != 1.0:
             normal = normal * sigma_scale

@@ -8,9 +8,10 @@ directory is ``mmtraj_torch.utils.build_cache.resolve_cache_dir()``:
 first build in a process trims it to its cap, sparing the current libraries.
 The hash covers the source, every header and the flags, so an edited or added
 header builds anew and an unchanged tree loads from the build directory.
-Nothing here runs at import, and the module imports torch only inside the
-functions that take a tensor, so the host-side parser's build can name
-these libraries without it.
+``launch`` is the one way a wrapper in ``ops/`` calls into a library.
+Nothing is built or loaded at import, and the module imports torch only
+inside the functions that take a tensor, so the host-side parser's build
+can name these libraries without it.
 """
 
 from __future__ import annotations
@@ -22,16 +23,17 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 from mmtraj_torch.utils import build_cache
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("attend", "attend_packed", "gat", "gat_grad", "decoder", "wgrad")
+KERNELS = tuple(sorted(src.stem for src in CSRC.glob("*.cu")))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -97,20 +99,46 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _entry(name: str, symbol: str, args) -> ctypes._CFuncPtr:
+    """Entry point ``symbol`` of ``csrc/<name>.cu``'s library, its signature
+    set at its first call from that call's ``args``: a float is a C
+    ``float``, an int an ``int``, anything else (a tensor, None, a ctypes
+    array) a pointer; it returns an ``int``, the CUDA error code."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [ctypes.c_float if isinstance(a, float) else
+                       ctypes.c_int if isinstance(a, int) else ctypes.c_void_p for a in args]
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
+
+
+def launch(name: str, symbol: str, device: torch.device, *args) -> None:
+    """Call ``symbol`` of ``csrc/<name>.cu`` on ``device``'s current stream:
+    ``args`` in the C order (a tensor by its address, None as a null
+    pointer, ints and floats as C ``int`` and ``float``), the stream last.
+    Raises if the launch failed."""
+    import torch
+
+    fn = _entry(name, symbol, args + (None,))
+    with torch.cuda.device(device):
+        code = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+                  torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(name, code, symbol)
+
+
 def occupancy(name: str, *shape: int) -> Dict[str, int]:
     """What ``mmtraj_<name>_occupancy`` of ``csrc/<name>.cu`` reports for a
     launch at ``shape`` (the kernel's own size arguments): blocks an SM,
     registers and local (spill) bytes a thread, dynamic shared bytes a block;
     for a kernel launched in thread block clusters also the cluster's blocks
     and how many such clusters the card holds at once."""
-    lib = load(name)
-    fn = getattr(lib, f"mmtraj_{name}_occupancy")
-    fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     names = ("blocks_per_sm", "registers", "spill_bytes", "shared_bytes", "cluster",
              "active_clusters")
     info = (ctypes.c_int * len(names))()
-    raise_on_error(lib, fn(*shape, ctypes.addressof(info)), f"{name} occupancy")
+    symbol = f"mmtraj_{name}_occupancy"
+    _raise_on_error(name, _entry(name, symbol, shape + (info,))(*shape, info), symbol)
     out = dict(zip(names, info))
     if not out["cluster"]:  # launched without a cluster: the first four only
         del out["cluster"], out["active_clusters"]
@@ -133,13 +161,9 @@ def check_cuda(t: torch.Tensor, name: str, shape, dtype=None) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def raise_on_error(lib: ctypes.CDLL, code: int, kernel: str) -> None:
+def _raise_on_error(name: str, code: int, what: str) -> None:
+    """Raise with the CUDA error's text unless ``code`` (returned by ``what``
+    of ``csrc/<name>.cu``) is 0."""
     if code != 0:
-        msg = lib.mmtraj_error_string(code).decode()
-        raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} (cudaError {code})")
+        msg = load(name).mmtraj_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: {msg} (cudaError {code})")

@@ -3,12 +3,14 @@
 ``dense_product(x, w)`` is ``x @ w``; for the lanes of a population
 (under ``torch.func.vmap``, a weight a lane) where a gradient is recorded
 it goes through ``_DenseProduct``, whose backward gives x the usual
-``g @ w^T`` and w ``mmtraj::weight_grad(x, g)``: ``weight_grad_math`` on the
-CPU, the Hopper kernel of ``csrc/wgrad.cu`` on CUDA.  The forward stays a
-plain ``torch.matmul``: a large product with many rows, as the JAX package
-leaves it to XLA.  A single product (a sequential step) stays plain: there
-cuBLAS's unbatched ``mm`` is as fast as the kernel on the H100, at about a
-quarter of the kernel wrapper's host cost a call (PERF.md section 6).
+``g @ w^T`` and w ``mmtraj::weight_grad(x, g)``, which the op's vmap rule
+makes one launch for all lanes of the Hopper kernel of ``csrc/wgrad.cu`` on
+CUDA.  The forward stays a plain ``torch.matmul``: a large product with
+many rows, as the JAX package leaves it to XLA.  A single product (a
+sequential step) stays plain, and so does ``mmtraj::weight_grad`` outside
+vmap, on every device: there cuBLAS's unbatched ``mm`` is as fast as the
+kernel at one lane on the H100, at less host cost a call (PERF.md
+section 6).
 
 Kernel note.  ``csrc/wgrad.cu`` replaces no TPU kernel: XLA computes this
 product in the JAX package.  It was added for the lanes of a population
@@ -33,7 +35,7 @@ counts their FLOPs as it counted the products they replace.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 import math
 
 import torch
@@ -69,17 +71,11 @@ def plan(S: int, R: int, din: int, dout: int, sms: int):
     return tm, tn, math.ceil(max(R, 1) / rows), rows
 
 
-@torch.library.custom_op("mmtraj::weight_grad", mutates_args=(), device_types="cpu")
+@torch.library.custom_op("mmtraj::weight_grad", mutates_args=())
 def _weight_grad_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """``mmtraj::weight_grad`` on the CPU: the plain version."""
+    """``mmtraj::weight_grad`` on every device: the plain version (its vmap
+    rule takes the lanes to the kernel)."""
     return weight_grad_math(x, g)
-
-
-@_weight_grad_op.register_kernel("cuda")
-def _weight_grad_cuda(x, g):  # lint: ok: torch.library calls it
-    out = _launch(x.reshape(1, -1, x.shape[-1]), g.reshape(1, -1, g.shape[-1]))[0]
-    weight_grad.launches += 1
-    return out
 
 
 @_weight_grad_op.register_fake
@@ -96,7 +92,20 @@ def _weight_grad_lanes_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 @_weight_grad_lanes_op.register_kernel("cuda")
 def _weight_grad_lanes_cuda(x, g):  # lint: ok: torch.library calls it
-    out = _launch(x, g)
+    """``mmtraj_wgrad`` on x (S, R, din), g (S, R, dout) CUDA float32 tensors
+    (made contiguous) -> (S, din, dout); the split's scratch allocated
+    here."""
+    x, g = x.contiguous(), g.contiguous()
+    S, R, din = x.shape
+    dout = g.shape[2]
+    _build.check_cuda(x, "x", (S, R, din))
+    _build.check_cuda(g, "g", (S, R, dout))
+    tm, tn, splits, rows = plan(S, R, din, dout, _sms(x.device))
+    out = torch.empty((S, din, dout), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, S, din, dout), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    _build.launch("wgrad", "mmtraj_wgrad", x.device, x, g, out, partial, S, R, din, dout, tm, tn,
+                  splits, rows)
     weight_grad_lanes.launches += 1
     return out
 
@@ -181,8 +190,8 @@ def _is_lane(t: torch.Tensor) -> bool:
 
 def weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``mmtraj::weight_grad``: x (..., din), g (..., dout) -> x^T g (din,
-    dout) over every row, on the kernel of ``csrc/wgrad.cu`` for CUDA
-    tensors, ``weight_grad_math`` for CPU tensors."""
+    dout) over every row, ``weight_grad_math`` on every device; under
+    ``torch.func.vmap`` one ``weight_grad_lanes`` call for all lanes."""
     return torch.ops.mmtraj.weight_grad(x, g)
 
 
@@ -194,34 +203,9 @@ def weight_grad_lanes(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.ops.mmtraj.weight_grad_lanes(x, g)
 
 
+@functools.cache
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """``mmtraj_wgrad`` on x (S, R, din), g (S, R, dout) CUDA float32 tensors
-    (made contiguous) -> (S, din, dout); the split's scratch allocated
-    here."""
-    x, g = x.contiguous(), g.contiguous()
-    S, R, din = x.shape
-    dout = g.shape[2]
-    _build.check_cuda(x, "x", (S, R, din))
-    _build.check_cuda(g, "g", (S, R, dout))
-    tm, tn, splits, rows = plan(S, R, din, dout, _sms(x.device))
-    out = torch.empty((S, din, dout), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, S, din, dout), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    lib = _build.load("wgrad")
-    fn = lib.mmtraj_wgrad
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), g.data_ptr(), out.data_ptr(),
-                  None if partial is None else partial.data_ptr(), S, R, din, dout, tm, tn,
-                  splits, rows, _build.stream_of(x))
-    _build.raise_on_error(lib, code, "wgrad")
-    return out
-
-
-weight_grad.launches = 0
 weight_grad_lanes.launches = 0

@@ -41,8 +41,6 @@ grid), and both wrappers are differentiable where a gradient is recorded
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from mmtraj_torch.ops import _build
@@ -82,17 +80,12 @@ def _check(v, s_src, s_dst, att, num_heads: int) -> None:
 
 
 def _launch(name: str, v, s_src, s_dst, att, num_heads: int) -> torch.Tensor:
-    """Run ``mmtraj_<name>`` of ``csrc/<name>.cu`` on checked CUDA inputs."""
+    """Check the inputs and run ``mmtraj_<name>`` of ``csrc/<name>.cu``."""
+    _check(v, s_src, s_dst, att, num_heads)
     B, N, HD = v.shape
     out = torch.empty_like(v)
-    lib = _build.load(name)
-    fn = getattr(lib, f"mmtraj_{name}")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(v.device):
-        code = fn(v.data_ptr(), s_src.data_ptr(), s_dst.data_ptr(), att.data_ptr(),
-                  out.data_ptr(), B, N, num_heads, HD, _build.stream_of(v))
-    _build.raise_on_error(lib, code, name)
+    _build.launch(name, f"mmtraj_{name}", v.device, v, s_src, s_dst, att, out, B, N, num_heads,
+                  HD)
     return out
 
 
@@ -117,7 +110,6 @@ def _attend_op(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor, att: t
 
 @_attend_op.register_kernel("cuda")
 def _attend_cuda(v, s_src, s_dst, att, num_heads):  # lint: ok: torch.library calls it
-    _check(v, s_src, s_dst, att, num_heads)
     out = _launch("attend", v, s_src, s_dst, att, num_heads)
     attend.launches += 1
     return out
@@ -132,7 +124,6 @@ def _attend_packed_op(v: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
 
 @_attend_packed_op.register_kernel("cuda")
 def _attend_packed_cuda(v, s_src, s_dst, att, num_heads):  # lint: ok: torch.library calls it
-    _check(v, s_src, s_dst, att, num_heads)
     out = _launch("attend_packed", v, s_src, s_dst, att, num_heads)
     attend_packed.launches += 1
     return out

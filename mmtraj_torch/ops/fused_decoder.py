@@ -37,8 +37,6 @@ version writes the GRU and the softplus out, as the JAX package's
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from mmtraj_torch.ops import _build
@@ -56,6 +54,21 @@ def permute_head(w: torch.Tensor, b: torch.Tensor, m: int):
     idx = torch.cat([ar, m + 2 * ar, m + 2 * ar + 1, 3 * m + 2 * ar, 3 * m + 2 * ar + 1,
                      5 * m + ar])
     return w[:, idx].contiguous(), b[idx].contiguous()
+
+
+def gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Uniforms in [0, 1) -> standard Gumbel noise, u clamped away from 0."""
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def random_stream(rows: int, steps: int, n: int, num_mixtures: int,
+                  generator: torch.Generator, device):
+    """The pre-drawn random stream of ``rows`` rollout graphs from
+    ``generator`` (the device's default generator when None): (gumbel
+    (rows, T, N, M), normal (rows, T, N, 2)), the uniforms drawn first."""
+    u = torch.rand((rows, steps, n, num_mixtures), generator=generator, device=device)
+    normal = torch.randn((rows, steps, n, 2), generator=generator, device=device)
+    return gumbel(u), normal
 
 
 def _stats4(stats_mean, stats_std, device) -> torch.Tensor:
@@ -184,17 +197,9 @@ def _fused_decode_cuda(  # lint: ok: torch.library calls it
     for t, name, shape in args:
         _build.check_cuda(t, name, shape)
     out = torch.empty((B, T, N, 2), dtype=torch.float32, device=h0.device)
-    lib = _build.load("decoder")
-    fn = lib.mmtraj_decode
-    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(h0.device):
-        code = fn(*[t.data_ptr() for t, _, _ in args], out.data_ptr(),
-                  B, T, N, Hd, E, num_heads, HD, M,
-                  float(radius) * float(radius), float(sigma_min), float(rho_max),
-                  _build.stream_of(h0))
-    _build.raise_on_error(lib, code, "fused_decode")
+    _build.launch("decoder", "mmtraj_decode", h0.device, *[t for t, _, _ in args], out,
+                  B, T, N, Hd, E, num_heads, HD, M, float(radius) * float(radius),
+                  float(sigma_min), float(rho_max))
     fused_decode.launches += 1
     return out
 

@@ -42,7 +42,6 @@ no weights).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -169,15 +168,8 @@ def _gat_attend_grad_cuda(  # lint: ok: torch.library calls it
     ds_src, ds_dst = torch.empty_like(s_src), torch.empty_like(s_dst)
     stats = torch.empty((B, num_heads, 3, N), dtype=torch.float64, device=v.device)
     bits = torch.empty((2, B, N, (N + 31) // 32), dtype=torch.int32, device=v.device)
-    lib = _build.load("gat_grad")
-    fn = lib.mmtraj_gat_grad
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(v.device):
-        code = fn(*(t.data_ptr() for t in (v, s_src, s_dst, attend, d_agg, agg, dv, ds_src,
-                                           ds_dst, stats, bits)),
-                  B, N, num_heads, HD, _build.stream_of(v))
-    _build.raise_on_error(lib, code, "gat_grad")
+    _build.launch("gat_grad", "mmtraj_gat_grad", v.device, v, s_src, s_dst, attend, d_agg, agg,
+                  dv, ds_src, ds_dst, stats, bits, B, N, num_heads, HD)
     fused_gat_grad.launches += 1
     return agg, dv, ds_src, ds_dst
 
@@ -296,28 +288,15 @@ def _check_gat(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int, lead=()) -> 
     _build.check_cuda(bo, "bo", lead + (Dout,))
 
 
-def _call(entry: str, args, sizes, out_shape) -> torch.Tensor:
-    """``entry`` of ``csrc/gat.cu`` on checked CUDA inputs -> its output."""
-    h = args[0]
-    out = torch.empty(out_shape, dtype=torch.float32, device=h.device)
-    lib = _build.load("gat")
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * len(sizes) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(h.device):
-        code = fn(*(t.data_ptr() for t in args), out.data_ptr(), *sizes, _build.stream_of(h))
-    _build.raise_on_error(lib, code, entry)
-    return out
-
-
 def _launch(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.Tensor:
     """One launch of ``mmtraj_gat`` on checked CUDA inputs; counted in
     ``fused_gat.launches``."""
     args = (h, attend, wv, a_src, a_dst, wo, bo)
     _check_gat(*args, num_heads)
     B, N, D = h.shape
-    sizes = (B, N, D, num_heads, wv.shape[1], wo.shape[1])
-    out = _call("mmtraj_gat", args, sizes, (B, N, wo.shape[1]))
+    out = torch.empty((B, N, wo.shape[1]), dtype=torch.float32, device=h.device)
+    _build.launch("gat", "mmtraj_gat", h.device, *args, out, B, N, D, num_heads, wv.shape[1],
+                  wo.shape[1])
     fused_gat.launches += 1
     return out
 
@@ -330,8 +309,9 @@ def _launch_lanes(h, attend, wv, a_src, a_dst, wo, bo, num_heads: int) -> torch.
     S = h.shape[0]
     _check_gat(*args, num_heads, lead=(S,))
     _, B, N, D = h.shape
-    sizes = (S, B, N, D, num_heads, wv.shape[2], wo.shape[2])
-    out = _call("mmtraj_gat_lanes", args, sizes, (S, B, N, wo.shape[2]))
+    out = torch.empty((S, B, N, wo.shape[2]), dtype=torch.float32, device=h.device)
+    _build.launch("gat", "mmtraj_gat_lanes", h.device, *args, out, S, B, N, D, num_heads,
+                  wv.shape[2], wo.shape[2])
     fused_gat_lanes.launches += 1
     fused_gat.launches += 1
     return out

@@ -1,7 +1,7 @@
 """The build directory of the port's native libraries (counterpart of
 ``mmtraj/utils/compile_cache.py``).
 
-The four CUDA kernels (``mmtraj_torch/ops/_build.py``) and the annotation
+The CUDA kernels (``mmtraj_torch/ops/_build.py``) and the annotation
 parser (``mmtraj_torch/native/build.py``) compile into one directory, each
 library under a name hashed from its sources and flags
 (``lib<name>-<hash>.so``).  An edit of a source therefore adds a library and

@@ -171,11 +171,12 @@ def test_the_ops_pass_opcheck_and_count_their_flops(op, args):
 
 def test_launch_counters_list_the_weight_gradient_kernel():
     """A graphed step's capture counts and the benchmarks' launch counts
-    read ``ops.launch_counters()``: the kernel's two wrappers are in it."""
+    read ``ops.launch_counters()``: the kernel's wrapper is in it, and the
+    unbatched op, which launches no kernel, is not."""
     from mmtraj_torch.ops import launch_counters
 
     counters = launch_counters()
-    assert counters["weight_grad"] is dense_grad.weight_grad
+    assert "weight_grad" not in counters
     assert counters["weight_grad_lanes"] is dense_grad.weight_grad_lanes
     assert all(isinstance(c.launches, int) for c in counters.values())
 

@@ -188,6 +188,18 @@ def test_artifact_equals_live_rollout(route, nodes, artifacts, programs, jax_par
     torch.testing.assert_close(got, want, **LIVE)
 
 
+@pytest.mark.parametrize("rows, n, seed", [(K * B_CAP, N_CAP, 5), (7, 3, 2**31 + 1)])
+def test_draw_stream_is_the_models_stream_to_the_bit(rows, n, seed, jax_params):
+    """``draw_stream`` from a seed and ``Forecaster._rollout_stream`` from a
+    generator seeded so draw one stream: Gumbel noise and normals equal to
+    the bit."""
+    got = draw_stream(rows, TP, n, SMALL["num_mixtures"], seed, "cpu")
+    want = _model("plain", jax_params)._rollout_stream(rows, n,
+                                                       torch.Generator().manual_seed(seed))
+    assert got[0].shape == (rows, TP, n, SMALL["num_mixtures"]) and got[1].shape == (rows, TP, n, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_seed_draws_the_live_stream_and_reproduces(artifacts, jax_params):
     """``load_predictor`` draws the stream from the seed as ``rollout_k``
     draws it from a generator so seeded; the same seed reproduces, another

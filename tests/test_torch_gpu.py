@@ -621,14 +621,15 @@ def test_weight_grad_lanes_matches_plain_and_repeats_to_the_bit(cuda, s, r, din,
 @pytest.mark.parametrize("rows, din, dout", [((3, 333), 6, 30), ((999,), 64, 192),
                                              ((7, 41), 128, 384), ((2, 5), 64, 64)])
 def test_weight_grad_on_ragged_rows_and_unaligned_inputs(cuda, rows, din, dout):
-    """Rows that are no multiple of a stage, x starting 4 bytes past an
-    aligned address (the 4-byte copies), and a few rows (one split)."""
+    """One lane (``weight_grad_lanes`` at S = 1): rows that are no multiple
+    of a stage, x starting 4 bytes past an aligned address (the 4-byte
+    copies), and a few rows (one split)."""
     x, g = _wgrad_inputs(cuda, rows + (din + 1,), rows + (dout,))
-    x = x.flatten()[1:1 + math.prod(rows) * din].reshape(rows + (din,))
-    before = dense_grad.weight_grad.launches
-    got = dense_grad.weight_grad(x, g)
+    x = x.flatten()[1:1 + math.prod(rows) * din].reshape(1, -1, din)
+    before = dense_grad.weight_grad_lanes.launches
+    got = dense_grad.weight_grad_lanes(x, g.reshape(1, -1, dout))[0]
     torch.cuda.synchronize()
-    assert dense_grad.weight_grad.launches == before + 1
+    assert dense_grad.weight_grad_lanes.launches == before + 1
     want = dense_grad.weight_grad_math(x.double(), g.double())
     torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * want.abs().max().item())
 
@@ -709,7 +710,7 @@ def test_graphed_population_step_launches_the_weight_gradient_kernel(cuda):
     from mmtraj_torch import train
 
     pop, xy, mask, idx, to, tp = _graphed_population(cuda)
-    per_step = {"weight_grad_lanes": 5 * to + 1 + tp + 5 * (tp - 1), "weight_grad": 0}
+    per_step = {"weight_grad_lanes": 5 * to + 1 + tp + 5 * (tp - 1)}
     for k, steps in ((0, train.CAPTURE_WARMUP + 1), (1, 0)):
         before = {name: getattr(dense_grad, name).launches for name in per_step}
         losses = pop(xy, mask, idx[3 * k:3 * k + 3], range(3 * k, 3 * k + 3))
