@@ -229,6 +229,17 @@ entry points ``Forecaster.rollout_k`` and ``rollout_bench``:
    too: ``GRAD_STEP`` a ``use_pallas`` step of the rnn encoder, one a
    ``_FusedGat`` backward; the kernels line's ``fused_gat_grad`` row counts
    the training paths' calls.
+22. (run before 7's line) the layer norm's kernels (``csrc/layer_norm.cu``,
+   ``ops/fused_layer_norm.py``) at ``kernel_inputs.LN_CASES`` (a
+   config4-attn3 block's 65,536 tokens, its readout's strided 8,192 rows,
+   hidden 128, a ragged row count) against the float64 chain as phase 21
+   holds the GAT's backward, and to the bit from call to call, with device
+   times of each kernel, of the plain chain's forward and of its backward by
+   autograd, of ``torch.nn.functional.layer_norm``'s (``library_ms``), the
+   bounds and occupancy, and each of y, dx, dscale and dbias's error for
+   the kernels, the plain chain and the library.  Phase 11's attention-encoder steps
+   under ``use_pallas`` count both: 6 L + 1 forward calls and 3 L + 1
+   backward calls a remat-"full" step of L blocks.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1020,14 +1031,16 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
     attn = dataclasses.replace(cfg.model, encoder="attn")
     attn_state = init_params(attn, torch.Generator().manual_seed(0))
 
-    def steps(model_cfg, st, loss_mode="nll", kernel_calls=None, grad_calls=None):
+    def steps(model_cfg, st, loss_mode="nll", kernel_calls=None, grad_calls=None,
+              norm_calls=(0, 0)):
         model = Forecaster(model_cfg, TO, TP, device=dev, state=st)
         step = tr.make_train_step(model, tr.make_optimizer(cfg.replace(model=model_cfg), model),
                                   stats, loss_mode=loss_mode, variety_n=VARIETY_N)
         losses, grads = [], None
         for s in range(TRAIN_STEPS):
             loss, counts = counted(lambda: step(xy, mask, s))
-            want = {**zero, "fused_gat": kernel_calls or 0, "fused_gat_grad": grad_calls or 0}
+            want = {**zero, "fused_gat": kernel_calls or 0, "fused_gat_grad": grad_calls or 0,
+                    "fused_layer_norm": norm_calls[0], "fused_layer_norm_grad": norm_calls[1]}
             check(counts == want, f"{model_cfg.encoder}/{model_cfg.cell} step {s}: launches "
                                   f"{counts}, want {want}")
             losses.append(float(loss))
@@ -1039,13 +1052,17 @@ def graphed_training_phase(torch, dev, card, cfg, counted, zero) -> None:
         for loss_mode in ("nll", "variety"):
             lp, _, pp, _ = steps(attn, attn_state, loss_mode)
             calls = 2 * (attn.attn_layers + TP)
+            # The layer norms (3 a block and the readout's): the blocks' again in the
+            # recomputation, one backward call each.
+            norms = 3 * attn.attn_layers
             lk, _, pk, _ = steps(dataclasses.replace(attn, use_pallas=True), attn_state, loss_mode,
-                                 calls, attn.attn_layers + TP - 1)
+                                 calls, attn.attn_layers + TP - 1, (2 * norms + 1, norms + 1))
             rel, dmax = compare(f"attn {loss_mode}", lk, lp, pk, pp, ATTN_LATER_LOSS_RTOL)
             log(f"attn encoder training {loss_mode} (B={TB}, N={N}, {TRAIN_STEPS} steps): "
                 f"use_pallas vs plain losses {lk} vs {lp}, within {rel:.2e} relative; "
                 f"parameters max |d| {dmax:.3e}; "
-                f"fused_gat {calls} launches a step ({attn.attn_layers} layers at "
+                f"fused_layer_norm {2 * norms + 1} and fused_layer_norm_grad {norms + 1} a "
+                f"step; fused_gat {calls} launches a step ({attn.attn_layers} layers at "
                 f"{TB * TO} graphs, {TP} decoder steps, each again in the recomputation)")
 
     # e. The remat policies: gradients against "full", peak memory and rate.
@@ -2922,6 +2939,104 @@ def gat_grad_phase(torch, dev, card) -> dict:
     return rows[kernel_inputs.GRAD_CASES[0]]
 
 
+def layer_norm_cost(rows, h, backward):
+    """The layer norm's kernels: the forward reads x and writes y (8 FLOPs an
+    element), the backward reads x and dy and writes dx (12) and sums dscale
+    and dbias through its float64 scratch; each reads scale (and bias) and
+    the rows' mu and rstd.  -> (flops, bytes, product flops)."""
+    from mmtraj_torch.ops import fused_layer_norm
+
+    if not backward:
+        return 8.0 * rows * h, 4.0 * (2 * rows * h + 2 * rows + 2 * h), 0.0
+    blocks = fused_layer_norm.plan(rows)[0]
+    return (12.0 * rows * h, 4.0 * (3 * rows * h + 2 * rows + 3 * h) + 16.0 * blocks * 2 * h,
+            0.0)
+
+
+def layer_norm_phase(torch, dev, card) -> dict:
+    """Phase 22: ``fused_layer_norm``'s forward and backward kernels
+    (``csrc/layer_norm.cu``) at each of ``kernel_inputs.LN_CASES`` against the
+    float64 chain (y and every gradient within ``GRAD_TOL`` of its largest
+    entry, no more than ``GRAD_VS_PLAIN`` times further from it than the
+    float32 plain chain with autograd) and against themselves, with device
+    times of each kernel beside the plain chain's forward and its forward and
+    backward by autograd and those of ``torch.nn.functional.layer_norm``
+    (``library_ms``; its backward: forward and backward less forward), their
+    bounds and occupancy, and the errors of each output; -> the kernels
+    line's rows, at a config4-attn3 block's tokens."""
+    from mmtraj_torch.models.layers import layer_norm
+    from mmtraj_torch.ops import _build, fused_layer_norm as fln
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import kernel_inputs
+
+    def with_grads(fn, x, scale, bias, dy):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
+        y = fn(*leaves)
+        return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+
+    def plain(x, scale, bias):
+        return layer_norm({"scale": scale, "bias": bias}, x)
+
+    def library(x, scale, bias):
+        return torch.nn.functional.layer_norm(x, x.shape[-1:], scale, bias, fln.EPS)
+
+    def errors(got, want):
+        return ", ".join(f"{(g.double() - w).abs().max().item() / w.abs().max().item():.2e}"
+                         for g, w in zip(got, want))
+
+    rows = {}
+    with torch.enable_grad():
+        for label, lead, h in kernel_inputs.LN_CASES:
+            rng = np.random.default_rng(h + len(lead))
+            x, scale, bias, dy = kernel_inputs.layer_norm_case(rng, lead, h, dev)
+            before = (fln.fused_layer_norm.launches, fln.fused_layer_norm_grad.launches)
+            got = with_grads(fln.fused_layer_norm, x, scale, bias, dy)
+            again = with_grads(fln.fused_layer_norm, x, scale, bias, dy)
+            want = with_grads(lambda *a: fln.layer_norm_math(*a)[0],
+                              *(t.double() for t in (x, scale, bias, dy)))
+            ref = with_grads(plain, x, scale, bias, dy)
+            lib = with_grads(library, x, scale, bias, dy)
+            torch.cuda.synchronize()
+            counts = (fln.fused_layer_norm.launches - before[0],
+                      fln.fused_layer_norm_grad.launches - before[1])
+            err = faithful(torch, got, ref, want)
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            check(counts == (2, 2) and same,
+                  f"fused_layer_norm {label}: launches {counts}, repeats to the bit {same}")
+            n_rows = x.numel() // h
+            _, mu, rstd = fln.layer_norm_math(x, scale, bias)
+            leaves = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
+            with torch.no_grad():
+                fwd_ms = time_ms(torch, lambda: fln.fused_layer_norm(x, scale, bias))
+                bwd_ms = time_ms(torch, lambda: fln.fused_layer_norm_grad(x, scale, mu, rstd, dy))
+                plain_ms = time_ms(torch, lambda: plain(x, scale, bias))
+                lib_ms = time_ms(torch, lambda: library(x, scale, bias))
+            plain_both_ms = time_ms(torch, lambda: torch.autograd.grad(plain(*leaves), leaves, dy))
+            lib_both_ms = time_ms(torch, lambda: torch.autograd.grad(library(*leaves), leaves, dy))
+            for name, backward, ms, p_ms, l_ms in (
+                    ("fused_layer_norm", False, fwd_ms, plain_ms, lib_ms),
+                    ("fused_layer_norm_grad", True, bwd_ms, plain_both_ms - plain_ms,
+                     lib_both_ms - lib_ms)):
+                cost = layer_norm_cost(n_rows, h, backward)
+                rows[(name, label)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=p_ms, library_ms=l_ms, cost=cost,
+                    occupancy=_build.occupancy("layer_norm", h, int(backward)))
+            bf, bb = (bound(*layer_norm_cost(n_rows, h, b)[:2])[0] for b in (False, True))
+            strided = "" if x.is_contiguous() else " strided"
+            log(f"fused_layer_norm {label} ({n_rows}, {h}){strided}: errors of y, dx, dscale, "
+                f"dbias within {err:.2e} of the float64 chain's largest entries, same to the "
+                f"bit; forward {fwd_ms:.4f} ms (plain {plain_ms:.4f}, bound {bf:.5f}), backward "
+                f"{bwd_ms:.4f} ms (plain forward and backward {plain_both_ms:.4f}, bound "
+                f"{bb:.5f}); library forward {lib_ms:.4f} ms, forward and backward "
+                f"{lib_both_ms:.4f}; errors of y, dx, dscale, dbias: kernels {errors(got, want)}, "
+                f"plain {errors(ref, want)}, library {errors(lib, want)}; forward "
+                f"{json.dumps(rows[('fused_layer_norm', label)]['occupancy'])}, backward "
+                f"{json.dumps(rows[('fused_layer_norm_grad', label)]['occupancy'])}; {card}")
+    first = kernel_inputs.LN_CASES[0][0]
+    return {name: rows[(name, first)] for name in ("fused_layer_norm", "fused_layer_norm_grad")}
+
+
 def main() -> int:
     import torch
 
@@ -3401,6 +3516,11 @@ def main() -> int:
     results["fused_gat_grad"] = gat_grad_phase(torch, dev, card)
     log(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
+    # -- 22. the layer norm ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    results.update(layer_norm_phase(torch, dev, card))
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+
     # -- 7. the kernels line ----------------------------------------------------
     sources = {
         "attend": ("mmtraj_torch/csrc/attend.cu", "mmtraj/ops/fused_attend.py:212"),
@@ -3410,6 +3530,8 @@ def main() -> int:
         "fused_decode": ("mmtraj_torch/csrc/decoder.cu", "mmtraj/ops/fused_decoder.py:208"),
         "weight_grad_lanes": ("mmtraj_torch/csrc/wgrad.cu", None),  # XLA's product in JAX
         "fused_gat_grad": ("mmtraj_torch/csrc/gat_grad.cu", None),  # JAX's VJP of the plain math
+        "fused_layer_norm": ("mmtraj_torch/csrc/layer_norm.cu", None),  # XLA's fusion in JAX
+        "fused_layer_norm_grad": ("mmtraj_torch/csrc/layer_norm.cu", None),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

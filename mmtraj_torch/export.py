@@ -18,8 +18,9 @@ K * oversample, and ``load_predictor`` draws the stream from
 the live ``rollout_k`` with a generator seeded alike gives it too.
 
 Route A (``use_pallas`` + ``use_fused_decoder``) keeps ``mmtraj.fused_gat``
-and ``mmtraj.fused_decode`` nodes in the program, route B ``mmtraj.attend``
-nodes, and "auto" resolves on the target device at trace time
+and ``mmtraj.fused_decode`` nodes in the program (with the attention encoder
+on CUDA also ``mmtraj.layer_norm``), route B ``mmtraj.attend`` nodes, and
+"auto" resolves on the target device at trace time
 (``models.gat.use_attend_kernel``), which is what the JAX package's static
 resolution for ``--platform`` achieves.  The kernels have a CPU
 implementation (their plain versions), so any route exports for either
@@ -153,7 +154,7 @@ def load_exported(path: str):
     # Registers the mmtraj::* ops an artifact's graph may call (building and
     # loading the kernels waits for a launch).
     from mmtraj_torch.ops import (  # noqa: F401  # lint: ok: imported to register the ops
-        fused_attend, fused_decoder, fused_gat)
+        fused_attend, fused_decoder, fused_gat, fused_layer_norm)
 
     extra = {META: ""}
     program = torch.export.load(path, extra_files=extra)

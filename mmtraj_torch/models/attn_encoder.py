@@ -8,9 +8,14 @@ time folded into the batch as (B·T, N, H) graphs; then a position-wise MLP
 (H -> 4H -> H).  Positions are the parameter-free sinusoidal encoding, and
 the readout is the layer-normed last observed step, zero on padded agents.
 
-The temporal attention is plain ``torch`` products, as the JAX package
-leaves it to XLA; the per-frame GAT reaches the attend kernel through
-``gat_apply`` where its dispatch rule says so ("auto": N >= 128 on CUDA).
+The temporal attention, the MLP and the residuals are plain ``torch``, as
+the JAX package leaves them to XLA; the per-frame GAT reaches the attend
+kernel through ``gat_apply`` where its dispatch rule says so ("auto": N >= 128
+on CUDA), or the whole-layer kernel under ``cfg.use_pallas``.  Under
+``cfg.use_pallas`` the layer norms of a CUDA tensor take the kernel pair of
+``ops/fused_layer_norm.py`` (``_layer_norm``): a forward and a backward
+kernel each, in place of the plain chain's 10 and 29; otherwise
+``layers.layer_norm``.
 Under ``compute_dtype=torch.bfloat16`` the products' operands are rounded to
 bf16 (``layers.matmul``): the embedding, the projection, q, k, v, the
 attention output before ``wo``, the MLP and the GAT's input; scores, the
@@ -42,6 +47,7 @@ from mmtraj_torch.models.layers import (
     mlp,
     mlp_init,
 )
+from mmtraj_torch.ops.fused_layer_norm import fused_layer_norm
 from mmtraj_torch.utils.profiling import BackwardSpan, annotate, spans_on
 
 
@@ -91,6 +97,15 @@ def sinusoidal_positions(T: int, H: int, device=None) -> torch.Tensor:
     return pe
 
 
+def _layer_norm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """``layers.layer_norm(p, x)``; on the card under ``cfg.use_pallas`` (the
+    flag that sends the GAT to ``fused_gat``) ``fused_layer_norm``: one
+    forward and one backward kernel, which raise for what they do not take."""
+    if cfg.use_pallas and x.is_cuda:
+        return fused_layer_norm(x, p["scale"], p["bias"])
+    return layer_norm(p, x)
+
+
 def _temporal_mhsa(p: Params, x: torch.Tensor, num_heads: int, dtype=None) -> torch.Tensor:
     """Causal multi-head self-attention over the time axis, per agent:
     x (B, N, T, H) -> (B, N, T, H).  Scores are scaled by 1/sqrt(dh) and the
@@ -124,9 +139,9 @@ def attn_layer(lp: Params, x: torch.Tensor, cfg, adj_flat, mask_flat, drop, trai
     attn_layer.launches += 1
     with annotate("attn.layer", layer=layer):
         B, N, T, _ = x.shape
-        x = x + _temporal_mhsa(lp["attn"], layer_norm(lp["ln1"], x), cfg.num_heads, dt)
+        x = x + _temporal_mhsa(lp["attn"], _layer_norm(lp["ln1"], x, cfg), cfg.num_heads, dt)
         if cfg.social:
-            y_flat = layer_norm(lp["ln2"], x).transpose(1, 2).reshape(B * T, N, -1)
+            y_flat = _layer_norm(lp["ln2"], x, cfg).transpose(1, 2).reshape(B * T, N, -1)
             g = gat_apply(lp["gat"], y_flat, adj_flat, mask_flat, cfg.num_heads, dt,
                           use_pallas=cfg.use_pallas, attend_kernel=cfg.attend_kernel,
                           train=train)
@@ -134,7 +149,7 @@ def attn_layer(lp: Params, x: torch.Tensor, cfg, adj_flat, mask_flat, drop, trai
             if drop is not None:
                 g = g * drop["gat"][:, :, None, :]
             x = x + g
-        return x + mlp(lp["mlp"], layer_norm(lp["ln3"], x), dt)
+        return x + mlp(lp["mlp"], _layer_norm(lp["ln3"], x, cfg), dt)
 
 
 attn_layer.launches = 0
@@ -185,7 +200,7 @@ def attn_encode(params: Params, cfg, xy_obs: torch.Tensor, dxy_n: torch.Tensor,
         for i in range(cfg.attn_layers):
             x = layer_apply(params["layers"][f"l{i}"], x, cfg, adj_flat, mask_flat, drop, train,
                             dt, i)
-        feat = layer_norm(params["ln_out"], x[:, :, -1])
+        feat = _layer_norm(params["ln_out"], x[:, :, -1], cfg)
         feat = torch.where(mask[..., None], feat, 0.0)
         if grad_span is not None:
             (feat,) = grad_span.opens(feat)

@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from mmtraj_torch.ops.dense_grad import dense_product
+from mmtraj_torch.ops.fused_layer_norm import layer_norm_math
 
 Params = Dict[str, object]
 
@@ -173,12 +174,9 @@ def layer_norm_init(dim: int, device=None) -> Params:
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis: float32 statistics, biased variance."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+    """LayerNorm over the last axis: float32 statistics, biased variance
+    (``ops.fused_layer_norm.layer_norm_math``'s chain)."""
+    return layer_norm_math(x, p["scale"], p["bias"], eps, torch.float32)[0]
 
 
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:

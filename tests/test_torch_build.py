@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from mmtraj_torch.ops import _build, dense_grad, fused_attend, fused_decoder, fused_gat
+from mmtraj_torch.ops import fused_layer_norm
 from mmtraj_torch.ops import launch_counters
 
 
@@ -98,6 +99,10 @@ def _wrapper_calls() -> dict:
         "wgrad split": lambda: dense_grad._weight_grad_lanes_cuda(_t(5, 8192, 64),
                                                                   _t(5, 8192, 30)),
         "wgrad one split": lambda: dense_grad._weight_grad_lanes_cuda(_t(1, 40, 2), _t(1, 40, 6)),
+        "layer_norm": lambda: fused_layer_norm._layer_norm_cuda(_t(3, N, 64), _t(64), _t(64),
+                                                                1e-6),
+        "layer_norm_grad": lambda: fused_layer_norm._layer_norm_grad_cuda(
+            _t(3, N, 64), _t(64), _t(3, N), _t(3, N), _t(3, N, 64)),
     }
 
 
@@ -105,7 +110,8 @@ POINTEE = {"float*": torch.float32, "double*": torch.float64, "uint32_t*": torch
 
 
 @pytest.mark.parametrize("label", ["attend", "attend_packed", "gat", "gat_lanes", "gat_grad",
-                                   "decode", "wgrad split", "wgrad one split"])
+                                   "decode", "wgrad split", "wgrad one split", "layer_norm",
+                                   "layer_norm_grad"])
 def test_every_wrapper_hands_launch_what_its_entry_point_declares(label, monkeypatch):
     """The arguments in the C order: a tensor of the pointee's dtype (or
     None) for each pointer, an int for each ``int``, a float for each
@@ -113,6 +119,7 @@ def test_every_wrapper_hands_launch_what_its_entry_point_declares(label, monkeyp
     entry point's ``.cu`` file, which ``KERNELS`` names."""
     calls = []
     monkeypatch.setattr(_build, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(fused_layer_norm, "_check", lambda *a: None)  # it reads x's device too
     monkeypatch.setattr(_build, "launch", lambda *a: calls.append(a))
     monkeypatch.setattr(dense_grad, "_sms", lambda device: 132)
     for counter in launch_counters().values():
@@ -132,7 +139,8 @@ def test_every_wrapper_hands_launch_what_its_entry_point_declares(label, monkeyp
 
 def test_the_kernels_are_the_cuda_sources():
     assert set(_build.KERNELS) == {src.stem for src in _build.CSRC.glob("*.cu")}
-    assert {"attend", "attend_packed", "decoder", "gat", "gat_grad", "wgrad"} <= set(_build.KERNELS)
+    assert {"attend", "attend_packed", "decoder", "gat", "gat_grad", "layer_norm",
+            "wgrad"} <= set(_build.KERNELS)
 
 
 @pytest.fixture

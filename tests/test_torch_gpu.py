@@ -14,7 +14,8 @@ graph.  The GAT's backward kernel (``fused_gat_grad``) sums its gradients
 in another order than autograd of the plain math, over up to 8,192 rows a
 weight, so its gradients are held to the float64 plain math: within 1e-5 of
 each leaf's largest entry and no more than 4x further from it than the
-float32 plain math's.
+float32 plain math's; so are the layer norm's kernels (``fused_layer_norm``,
+whose scale and bias gradients sum over up to 65,536 rows).
 """
 
 import dataclasses
@@ -29,7 +30,7 @@ import torch
 from mmtraj_torch.config import ModelConfig
 from mmtraj_torch.data.transforms import NormStats
 from mmtraj_torch.models.forecaster import Forecaster
-from mmtraj_torch.ops import dense_grad, fused_attend, fused_decoder, fused_gat
+from mmtraj_torch.ops import dense_grad, fused_attend, fused_decoder, fused_gat, fused_layer_norm
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import kernel_inputs  # noqa: E402  (the inputs tools/kernel_times.py times)
@@ -51,16 +52,18 @@ def cuda():
 _t, _attend_tile = kernel_inputs.tensor, kernel_inputs.attend_tile
 
 
-def _assert_as_close_to_float64_as_plain(got, plain, wide, name):
-    """Each of ``got`` within 1e-5 of the float64 ``wide``'s largest entry and
-    no more than 4x further from it than the float32 ``plain`` (an error under
-    float32's epsilon counted as that epsilon)."""
+def _assert_as_close_to_float64_as_plain(got, plain, wide, name, limit=1e-5):
+    """Each of ``got`` within ``limit`` of the float64 ``wide``'s largest entry
+    (None: no such limit) and no more than 4x further from it than the
+    float32 ``plain`` (an error under float32's epsilon counted as that
+    epsilon)."""
     eps = float(np.finfo(np.float32).eps)
     for i, (g, p, w) in enumerate(zip(got, plain, wide)):
         scale = w.abs().max().item()
         err = (g.double() - w).abs().max().item() / scale
         plain_err = (p.double() - w).abs().max().item() / scale
-        assert err <= 1e-5 and err <= 4 * max(plain_err, eps), (name, i, err, plain_err)
+        assert limit is None or err <= limit, (name, i, err, plain_err)
+        assert err <= 4 * max(plain_err, eps), (name, i, err, plain_err)
 
 
 @pytest.mark.parametrize("n, heads, hd", [(8, 2, 16), (64, 4, 64), (100, 4, 64), (256, 8, 64),
@@ -800,3 +803,118 @@ def test_attn3_graphed_training_matches_the_reference(cuda):
     result, checks = run_cell(spec, 2**31 + 21, 0.01, False, "cuda", time.perf_counter())
     assert result["correct"] is True, checks.line()
     assert result["attempted"] == spec["config"]["train"]["steps_per_dispatch"]
+
+
+def _layer_norm_and_grads(fn, x, scale, bias, dy):
+    """fn(x, scale, bias) and its gradients at dy -> (y, dx, dscale, dbias)."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
+    y = fn(*leaves)
+    return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+
+
+@pytest.mark.parametrize("label, lead, h", kernel_inputs.LN_CASES + [
+    ("near_constant", (8192,), 64)])
+def test_layer_norm_kernels_match_the_float64_chain_and_repeat_to_the_bit(cuda, label, lead, h):
+    """``fused_layer_norm`` (``csrc/layer_norm.cu``) forward and backward at
+    a config4-attn3 block's tokens, its readout's strided slice, hidden 128
+    and a ragged row count, row 0 constant: y and every gradient within 1e-5
+    of the float64 chain's largest entry and no more than 4x further from it
+    than the float32 plain chain with autograd; two calls equal to the bit;
+    one launch of each a call.  "near_constant" rows (spread 1e-4 under an
+    offset of 1) lose digits in x - mu in any float32 chain, the plain one's
+    y about 3e-4 off: they are held to the 4x limit alone."""
+    from mmtraj_torch.models.layers import layer_norm
+
+    rng = np.random.default_rng(h + len(lead))
+    near = label == "near_constant"
+    x, scale, bias, dy = kernel_inputs.layer_norm_case(
+        rng, lead, h, cuda, **(dict(spread=(1e-4, 1e-4), offset=1.0) if near else {}))
+    before = (fused_layer_norm.fused_layer_norm.launches,
+              fused_layer_norm.fused_layer_norm_grad.launches)
+    got = _layer_norm_and_grads(fused_layer_norm.fused_layer_norm, x, scale, bias, dy)
+    again = _layer_norm_and_grads(fused_layer_norm.fused_layer_norm, x, scale, bias, dy)
+    plain = _layer_norm_and_grads(lambda x_, s, b: layer_norm({"scale": s, "bias": b}, x_),
+                                  x, scale, bias, dy)
+    wide = _layer_norm_and_grads(lambda *a: fused_layer_norm.layer_norm_math(*a)[0],
+                                 *(t.double() for t in (x, scale, bias, dy)))
+    torch.cuda.synchronize()
+    assert (fused_layer_norm.fused_layer_norm.launches,
+            fused_layer_norm.fused_layer_norm_grad.launches) == (before[0] + 2, before[1] + 2)
+    _assert_as_close_to_float64_as_plain(got, plain, wide, label, None if near else 1e-5)
+    for name, g, a in zip(("y", "dx", "dscale", "dbias"), got, again):
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("own", [False, True], ids=["shared", "own"])
+def test_layer_norm_kernels_under_vmap_give_each_lanes_calls_bits(cuda, own):
+    """``torch.func.vmap`` of ``fused_layer_norm`` over 3 lanes of a block's
+    tokens on the card: lanes sharing scale and bias in one forward launch,
+    lanes with their own in one each; the backward one launch a lane; y and
+    every gradient equal to the bit to those of each lane's own call (a
+    shared leaf's gradient: the lanes' in lane order)."""
+    rng = np.random.default_rng(31)
+    cases = [kernel_inputs.layer_norm_case(rng, (4096,), 64, cuda) for _ in range(3)]
+    x, scale, bias, dy = (torch.stack(t) for t in zip(*cases))
+    if not own:
+        scale, bias = scale[0], bias[0]
+    dims = (0, 0, 0) if own else (0, None, None)
+    before = (fused_layer_norm.fused_layer_norm.launches,
+              fused_layer_norm.fused_layer_norm_grad.launches)
+    got = _layer_norm_and_grads(torch.func.vmap(fused_layer_norm.fused_layer_norm,
+                                                in_dims=dims), x, scale, bias, dy)
+    torch.cuda.synchronize()
+    assert (fused_layer_norm.fused_layer_norm.launches - before[0],
+            fused_layer_norm.fused_layer_norm_grad.launches - before[1]) == (3 if own else 1, 3)
+    lanes = [_layer_norm_and_grads(fused_layer_norm.fused_layer_norm, x[s],
+                                   scale[s] if own else scale, bias[s] if own else bias, dy[s])
+             for s in range(3)]
+    for i, name in enumerate(("y", "dx", "dscale", "dbias")):
+        want = torch.stack([lane[i] for lane in lanes])
+        if name in ("dscale", "dbias") and not own:
+            want = want[0] + want[1] + want[2]
+            torch.testing.assert_close(got[i], want, rtol=1e-6, atol=1e-6, msg=name)
+        else:
+            assert torch.equal(got[i], want), name
+
+
+def test_layer_norm_kernels_refuse_what_they_do_not_take(cuda):
+    """On the card ``fused_layer_norm`` keeps no plain route: a width outside
+    64 and 128, and a float64 x, raise."""
+    x = torch.randn(16, 48, device=cuda)
+    with pytest.raises(ValueError, match="H in"):
+        fused_layer_norm.fused_layer_norm(x, torch.ones(48, device=cuda),
+                                          torch.zeros(48, device=cuda))
+    with pytest.raises(ValueError, match="float32 CUDA tensor"):
+        fused_layer_norm.fused_layer_norm(torch.randn(16, 64, device=cuda, dtype=torch.float64),
+                                          torch.ones(64, device=cuda),
+                                          torch.zeros(64, device=cuda))
+
+
+def test_an_eager_attn3_step_launches_the_layer_norm_kernels(cuda):
+    """One eager config4-attn3 step (3 blocks, remat "full", ``use_pallas``;
+    B = 16): the 9 blocks' layer norms forward and again in the
+    recomputation and ``ln_out`` once, 19 forward calls; 10 backward calls.
+    A config 4 step (the GRU encoder) makes none."""
+    from mmtraj_torch import train
+    from mmtraj_torch.benchmarks import train_bench
+    from mmtraj_torch.config import config4
+
+    cfg = config4()
+    counts = {}
+    for label, mc in (("attn3", dataclasses.replace(cfg.model, encoder="attn", attn_layers=3,
+                                                    use_pallas=True)),
+                      ("config4", dataclasses.replace(cfg.model, use_pallas=True))):
+        to, tp, n = cfg.data.obs_len, cfg.data.pred_len, cfg.data.n_max
+        model = Forecaster(mc, to, tp, device=cuda, generator=torch.Generator().manual_seed(0))
+        stats = NormStats(np.zeros(2, np.float32), np.full(2, 0.4, np.float32))
+        step = train.make_train_step(model, train.make_optimizer(cfg.replace(model=mc), model),
+                                     stats)
+        xy, mask = train_bench.fake_batch(16, n, to + tp, cuda)
+        before = (fused_layer_norm.fused_layer_norm.launches,
+                  fused_layer_norm.fused_layer_norm_grad.launches)
+        loss = step(xy, mask, 0)
+        torch.cuda.synchronize()
+        assert math.isfinite(float(loss))
+        counts[label] = (fused_layer_norm.fused_layer_norm.launches - before[0],
+                         fused_layer_norm.fused_layer_norm_grad.launches - before[1])
+    assert counts == {"attn3": (19, 10), "config4": (0, 0)}

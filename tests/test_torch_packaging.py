@@ -44,10 +44,12 @@ def test_sources_are_package_data(package_data, package, pattern, path):
 
 
 def test_seven_cuda_sources():
-    # Seven before the weight-gradient kernel (csrc/wgrad.cu) made eight and
-    # the GAT's backward (csrc/gat_grad.cu) nine.
+    # Seven before the weight-gradient kernel (csrc/wgrad.cu) made eight, the
+    # GAT's backward (csrc/gat_grad.cu) nine and the layer norm
+    # (csrc/layer_norm.cu) ten.
     assert CSRC == ["attend.cu", "attend_block.cuh", "attend_common.cuh", "attend_packed.cu",
-                    "decoder.cu", "gat.cu", "gat_grad.cu", "tile_mma.cuh", "wgrad.cu"], CSRC
+                    "decoder.cu", "gat.cu", "gat_grad.cu", "layer_norm.cu", "tile_mma.cuh",
+                    "wgrad.cu"], CSRC
 
 
 def test_every_python_directory_is_a_package():

@@ -111,3 +111,29 @@ def gat_grad_case(rng, b, n, hd, heads, device="cuda"):
     att[:, -1] = 0.0
     att[:, :, -1] = 0.0
     return v, s_src, s_dst, att.contiguous(), d_agg, heads
+
+
+# The layer norm's kernels (csrc/layer_norm.cu), (label, leading shape, H): a
+# config4-attn3 block's tokens (B = 128 windows of 64 agents over 8 steps),
+# its readout's strided last step (x[:, :, -1] of those tokens), the hidden
+# 128 width, and a row count that fills no block of either kernel.
+LN_CASES = [("tokens", (65536,), 64), ("readout", (128, 64), 64), ("wide", (8192,), 128),
+            ("ragged", (1001,), 64)]
+
+
+def layer_norm_case(rng, lead, h, device="cuda", spread=(0.5, 2.0), offset=None):
+    """Inputs of ``fused_layer_norm`` -> (x, scale, bias, dy): rows of their
+    own offset (normal; ``offset`` for every row where given) and spread
+    (uniform in ``spread``), row 0 constant (zero variance); for "readout"'s
+    two leading axes x is the strided last step of (..., 8, h) tokens.  (A
+    row whose spread is far under its offset loses digits in x - mu in any
+    float32 implementation.)"""
+    full = lead + (8, h) if len(lead) == 2 else lead + (h,)
+    spread = torch.from_numpy(rng.uniform(*spread, full[:-1] + (1,)).astype(np.float32))
+    x = tensor(rng, *full, device=device) * spread.to(device)
+    x = x + (tensor(rng, *full[:-1], 1, device=device) if offset is None else offset)
+    if len(lead) == 2:
+        x = x[:, :, -1]
+    x[(0,) * len(lead)] = 1.7
+    scale = 1.0 + tensor(rng, h, scale=0.3, device=device)
+    return x, scale, tensor(rng, h, scale=0.2, device=device), tensor(rng, *x.shape, device=device)
